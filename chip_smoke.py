@@ -10,11 +10,13 @@ the ``nvidia-smi`` line):
    them), torch / CUDA / nvcc versions.
 2. ``build``   — builds the kernel library from ``src/repro_torch/kernels/csrc``
    (seconds it took).
-3. edge grid   — every hand-written kernel (dense, panel, coo, combine)
-   against its plain PyTorch version on the card: B in {8, 16, 24}; payload
-   float32, bfloat16, float64; one group and many; W = 8 and a large odd
-   multiple of 8; an all-padding group; random data within a tolerance and
-   integer data bit for bit.
+3. edge grid   — every hand-written kernel (dense, panel, coo, combine,
+   spmm) against its plain PyTorch version on the card: B in {8, 16, 24}
+   (spmm also 128); payload float32, bfloat16, float64 (spmm's X float32 and
+   bfloat16); one group and many; W = 8 and a large odd multiple of 8; spmm
+   over G in {1, 4, 16} and N in {1, 20, 100, 129, 512}; an all-padding group;
+   the combine at SpMM's wide rows (R = B*N) with a ragged last block row;
+   random data within a tolerance and integer data bit for bit.
 4. ``spmv``, one line per matrix — the main path through the entry points a
    user calls: triplets from the port's seeded generators ->
    ``CBMatrix.from_coo`` -> ``build_super_streams`` -> ``.to()`` (CUDA by
@@ -26,18 +28,34 @@ the ``nvidia-smi`` line):
    its plain version and timed at this matrix's shapes. Three matrices, one
    dominated by each format, B = 16, float32, default thresholds and group
    size, each with streams larger than the card's 50 MB L2.
-5. ``kernels`` — per kernel: launches on the main path (one ``cb_spmv`` call
-   on each matrix, summed; ``launches_per_call`` has them apart), worst error seen,
+5. ``matmat`` — the multi-RHS product on the ``banded`` matrix of step 4:
+   ``super_tile_stream_from_cb`` -> ``.to()`` -> ``ops.cb_spmm`` with 16
+   float32 right-hand sides, held against scipy's float64 CSR product, against
+   ``impl="reference"``, and against itself (bit-equal); ``torch.sparse`` CSR
+   ``A @ X`` is the yardstick.
+6. ``mlp_train`` — one training step of the cb-paper MLP at full width
+   (granite-8b's d_model 4096 and d_ff 14336, B = 128, keep 0.25, 4096
+   tokens): three ``CBSparseLinear`` layers, ``silu(gate(x)) * up(x)`` ->
+   ``down``, mean squared error, ``backward()``, SGD. Held against the same
+   step in float64 with dense masked weights, two steps bit-equal; the dense
+   ``torch.matmul`` step (TF32 off and on) is the yardstick.
+7. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+   on each matrix, one ``cb_spmm`` call, one training step, summed;
+   ``launches_per_call`` has them apart, keyed by the counted run), worst error seen,
    time, plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over 67 TFLOP/s float32),
    and a library call's time where one computes the same function.
-6. the ``nvidia-smi`` name and power limit, then the verdict line.
+8. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
 with CUDA events over warm, back-to-back calls (see ``time_ms``).
-``torch.sparse``, ``torch.bmm``, ``torch.einsum`` and ``index_add_`` appear
-here as yardsticks only; the port's CUDA path never calls them. The sizes
+``torch.sparse``, ``torch.einsum``, ``index_add_`` and the dense
+``torch.matmul`` appear here as yardsticks only, and ``torch.bmm`` as one too
+except in the sparse layer's dW, which the JAX package also leaves outside
+any kernel; the port's CUDA path calls none of the others. Float32 matrix
+products run in full float32 (``allow_tf32`` is set False) unless a line
+says otherwise. The sizes
 are fixed: the script has no rehearsal mode, so its verdict line always
 speaks of the full-size run.
 """
@@ -52,25 +70,38 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import CBMatrix, dense_oracle  # noqa: E402
-from repro_torch.core.streams import build_super_streams  # noqa: E402
+from repro_torch.core.streams import (  # noqa: E402
+    build_super_streams, build_super_tile_stream, tile_stream_from_cb,
+)
 from repro_torch.data import matrices  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, cb_block_dense, cb_colagg, cb_coo, cb_combine, ops,
+    _build, cb_block_dense, cb_colagg, cb_combine, cb_coo, cb_spmm, ops,
 )
+from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 REPS = 20                      # timed calls per batch (see time_ms)
 KERNEL_TOL = 1e-4              # kernel vs plain: f32 sums of <= 24 products (dense) or 8
-                               # (panel, coo), or of a block row's slots (combine), taken
-                               # in another order; relative to max(1, max |plain|)
+                               # (panel, coo), <= 128 (spmm), or of a block row's slots
+                               # (combine), taken in another order; relative to
+                               # max(1, max |plain|)
 ORACLE_TOL = 1e-4              # y vs float64 oracle: f32 accumulation over a row's nnz,
                                # relative to (|A| |x|)_row
+# the cb-paper MLP (src/repro/configs/__init__.py: granite-8b widths, CB-sparse SwiGLU)
+# over one 4096-token sequence of the train_4k shape
+MLP = dict(d_model=4096, d_ff=14336, block_size=128, keep_fraction=0.25, tokens=4096)
+TRAIN_TOL = 1e-4               # MLP step vs float64 dense: y, dX and d_tiles each within
+                               # this fraction of the float64 result's largest magnitude.
+                               # f32 sums of 1024 (forward, dX) or 4096 (dW) products
+                               # carry ~1e-6 of that; 1e-4 leaves room for the three
+                               # chained products and the silu between them
 
 
 def emit(tag: str, **fields) -> None:
@@ -93,6 +124,7 @@ WRAPPERS = {
     "panel": cb_colagg.panel_spmv_batched,
     "coo": cb_coo.coo_spmv_batched,
     "combine": cb_combine.segment_combine,
+    "spmm": cb_spmm.super_tile_spmm,
 }
 KERNEL_INFO = {
     "dense": ("src/repro_torch/kernels/csrc/cb_block_dense.cu",
@@ -104,6 +136,8 @@ KERNEL_INFO = {
     # not a TPU kernel: the XLA scatter-add around them, which CUDA must order itself
     "combine": ("src/repro_torch/kernels/csrc/cb_combine.cu",
                 "src/repro/kernels/ops.py:367"),
+    "spmm": ("src/repro_torch/kernels/csrc/cb_spmm.cu",
+             "src/repro/kernels/cb_spmm.py:71"),
 }
 worst_err = {k: 0.0 for k in WRAPPERS}       # max abs error vs plain, all comparisons
 worst_rel = {k: 0.0 for k in WRAPPERS}
@@ -207,6 +241,11 @@ def combine_pair(m, parts, brow, B, plan=None, y=None):
             lambda: run(cb_combine.combine_plain))
 
 
+def spmm_pair(tiles, bcol, Xb):
+    return (lambda: cb_spmm.super_tile_spmm(tiles, bcol, Xb),
+            lambda: cb_spmm.super_tile_spmm_plain(tiles, bcol, Xb))
+
+
 def panel_library(panels, xg):
     """One PyTorch call for the panel kernel's function: each slot's 8 lanes contracted."""
     gp, B, W = panels.shape
@@ -267,6 +306,47 @@ def edge_grid(seed: int) -> int:
                 k, p = combine_pair(m, payload((T, B), torch.float32, integer), brow, B)
                 compare("combine", k(), p(), f"B={B} T={T} mb={mb}", exact=integer)
                 cases += 1
+    return cases + spmm_edge_grid(gen, payload)
+
+
+SPMM_DTYPES = [(t, x) for t in (torch.float32, torch.bfloat16, torch.float64)
+               for x in (torch.float32, torch.bfloat16)]
+
+
+def spmm_edge_grid(gen, payload) -> int:
+    """The SpMM kernel over B x G x N, every (tile, X) dtype pair in turn, one
+    group and many; an all-empty-slot group; the combine at R = B*N."""
+    cases = 0
+    combos = [(B, G, N) for B in (8, 16, 24) for G in (1, 4, 16) for N in (1, 20, 100, 129, 512)]
+    combos += [(128, G, N) for G in (1, 2) for N in (1, 20, 100, 129, 512)]
+    for i, (B, G, N) in enumerate(combos):
+        tdt, xdt = SPMM_DTYPES[i % len(SPMM_DTYPES)]
+        groups, nb = (1, 3) if (i // len(SPMM_DTYPES)) % 2 else (13, 29)
+        for integer in (False, True):
+            bcol = torch.randint(0, nb, (groups, G), generator=gen).to(torch.int32).to(DEV)
+            k, p = spmm_pair(payload((groups, G * B, B), tdt, integer), bcol,
+                             payload((nb, B, N), xdt, integer))
+            compare("spmm", k(), p(), f"B={B} G={G} N={N} {tdt}/{xdt} groups={groups}",
+                    exact=integer)
+            cases += 1
+        if B in (16, 128):                       # an all-empty-slot group: exact zeros
+            k, p = spmm_pair(torch.zeros((2, G * B, B), device=DEV),
+                             torch.zeros((2, G), dtype=torch.int32, device=DEV),
+                             payload((nb, B, N), xdt, False))
+            got = k()
+            compare("spmm", got, p(), f"B={B} G={G} N={N} empty slots", exact=True)
+            if got.any():
+                fail(f"spmm: empty slots at B={B} G={G} N={N} are not exact zeros")
+            cases += 1
+    # the combine at SpMM's row width R = B*N, last block row ragged
+    for B, N, T, mb in ((16, 16, 5000, 300), (24, 129, 700, 40), (128, 512, 300, 7)):
+        R, m = B * N, mb * B - 5
+        for integer in (False, True):
+            brow = torch.randint(0, mb, (T,), generator=gen).to(torch.int32)
+            brow[: T // 3] = 0
+            k, p = combine_pair(m * N, payload((T, R), torch.float32, integer), brow.to(DEV), R)
+            compare("combine", k(), p(), f"R={B}*{N} T={T} mb={mb}", exact=integer)
+            cases += 1
     return cases
 
 
@@ -396,7 +476,7 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     for k, ((kern, plain), nb, fl, shp, lib) in pairs.items():
         b_ms, b_by = bound(nb, fl)
         rows_out[k] = dict(
-            matrix=name, shape=shp, bytes=nb, flops=fl, launches=counted[k],
+            matrix=name, run=name, shape=shp, bytes=nb, flops=fl, launches=counted[k],
             ms=time_ms(kern), plain_ms=time_ms(plain, max(3, REPS // 4)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib[0] is None else time_ms(lib[0]), library=lib[1])
@@ -433,6 +513,331 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
          library_ms=library_ms, library="torch.sparse CSR A @ x",
          err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
          err_vs_library_abs=lib_err, runs_bit_equal=True)
+    return cb, (rows, cols, vals)
+
+
+# ---------------------------------------------------------------------------
+# the SpMM paths: the solver's multi-RHS product and the sparse MLP's step
+# ---------------------------------------------------------------------------
+
+def kernel_row(path, run, shape, nb, fl, launched, kern, plain, lib, lib_name):
+    """One timed row of the ``kernels`` line (kernel, plain, library call);
+    ``launched`` is the kernel's launch count in the counted ``run``."""
+    b_ms, b_by = bound(nb, fl)
+    return dict(matrix=path, run=run, shape=shape, bytes=nb, flops=fl, launches=launched,
+                ms=time_ms(kern), plain_ms=time_ms(plain, max(3, REPS // 4)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if lib is None else time_ms(lib), library=lib_name)
+
+
+def spmm_rows(path, run, tiles, bcol, Xb, route, m, launched, per_kernel):
+    """spmm and combine at one product's real shapes: checked, then timed.
+    ``launched`` holds the launch counts of the counted ``run`` this product
+    belongs to (one ``cb_spmm`` call, or a whole training step)."""
+    gt, Gt = bcol.shape
+    _, B, N = Xb.shape
+    T = gt * Gt
+    kern, plain = spmm_pair(tiles, bcol, Xb)
+    got, want = kern(), plain()
+    compare("spmm", got, want, f"{path} {tuple(tiles.shape)} N={N}")
+    xg = Xb[bcol.reshape(-1).long()]                    # pre-gathered for the yardstick
+    tiles3 = tiles.view(T, B, B).float()
+
+    def library():
+        return torch.bmm(tiles3, xg)
+
+    compare("spmm library", library().view(want.shape), want, path)
+    del want
+    parts = got.view(T, B * N)
+    kc, pc = combine_pair(m * N, parts, route.brow, B * N, route.combine)
+    want = pc()
+    compare("combine", kc(), want, f"{path} R={B}*{N}")
+    del want
+    y2d = torch.empty((-(-m // B), B * N), dtype=torch.float32, device=DEV)
+    brow64 = route.brow.long()
+
+    def combine_library(y):
+        y2d.zero_().index_add_(0, brow64, parts)
+        return y.add_(y2d.view(-1)[: y.shape[0]])
+
+    compare("combine library", combine_library(torch.zeros(m * N, device=DEV)), pc(), path)
+    y_acc = torch.zeros(m * N, dtype=torch.float32, device=DEV)
+    kc, pc = combine_pair(m * N, parts, route.brow, B * N, route.combine, y=y_acc)
+    plan_bytes = sum(nbytes(*(t for t in (lv.perm, lv.ptr, lv.rows) if t is not None))
+                     for lv in route.combine.levels)
+    out = {
+        "spmm": kernel_row(path, run, tuple(tiles.shape) + (N,),
+                           nbytes(tiles, bcol, Xb) + T * B * N * 4, 2 * T * B * B * N,
+                           launched["spmm"], kern, plain, library, "torch.bmm (X pre-gathered)"),
+        "combine": kernel_row(path, run, tuple(parts.shape), nbytes(parts) + plan_bytes + 2 * m * N * 4,
+                              parts.numel(), launched["combine"], kc, pc,
+                              lambda: combine_library(y_acc), "index_add_"),
+    }
+    for k, row in out.items():
+        per_kernel[k].append(row)
+    return out
+
+
+def run_matmat(call, cb, coo, seed, per_kernel, launches):
+    """``ops.cb_spmm`` with 16 right-hand sides on an SpMV line's matrix."""
+    rows, cols, vals = coo
+    m, n = cb.shape
+    B, N = cb.block_size, 16
+    X_np = np.random.default_rng(seed + 11).standard_normal((n, N)).astype(np.float32)
+
+    # -- the path, counted ----------------------------------------------------
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tiles_host = tile_stream_from_cb(cb)
+    t_tiles = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed_host = build_super_tile_stream(tiles_host)       # default group size
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = packed_host.to()
+    X = torch.from_numpy(X_np).to(DEV)
+    torch.cuda.synchronize()
+    t_to = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Y = ops.cb_spmm(s, X)                                    # default impl: the CUDA kernels
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0                      # holds the combine plan's host sort
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    for k, c in counted.items():
+        launches[k] += c
+    for k in ("spmm", "combine"):
+        if counted[k] < 1:
+            fail(f"matmat: kernel {k} was not launched by cb_spmm")
+    Y_again = ops.cb_spmm(s, X)
+    torch.cuda.synchronize()
+    num_tiles = tiles_host.num_tiles
+    del tiles_host, packed_host
+
+    # -- is Y right? -----------------------------------------------------------
+    if Y.shape != (m, N) or Y.dtype != torch.float32 or not torch.isfinite(Y).all():
+        fail(f"matmat: Y has shape {tuple(Y.shape)} dtype {Y.dtype} or is not finite")
+    if not torch.equal(Y, Y_again):
+        fail("matmat: two runs of cb_spmm are not bit-equal")
+    A64 = scipy.sparse.csr_matrix((vals.astype(np.float32).astype(np.float64), (rows, cols)),
+                                  shape=(m, n))
+    Y64 = A64 @ X_np.astype(np.float64)
+    mag = abs(A64) @ np.abs(X_np).astype(np.float64)
+    err = np.abs(Y.cpu().numpy().astype(np.float64) - Y64)
+    oracle_rel = float((err / np.maximum(mag, 1e-30)).max())
+    if not (err <= ORACLE_TOL * mag + 1e-30).all():
+        fail(f"matmat: Y differs from scipy float64 by {oracle_rel:.3e} of |A||X|")
+    Y_ref = ops.cb_spmm(s, X, impl="reference")
+    ref_err = float((Y - Y_ref).abs().max())
+    if ref_err > KERNEL_TOL * max(1.0, float(Y_ref.abs().max())):
+        fail(f"matmat: impl='cuda' differs from impl='reference' by {ref_err:.3e}")
+    del Y_ref, A64, Y64, mag, err
+
+    # -- the kernels at these shapes, and the whole call -------------------------
+    _, route = ops._prepare_tiles(s, None)
+    Xb = ops.x_blocks(X, s.nb, B)
+    path = f"matmat {call}"
+    rows_out = spmm_rows(path, path, s.tiles, s.bcol, Xb, route, m, counted, per_kernel)
+    matmat_ms = time_ms(lambda: ops.cb_spmm(s, X))
+    matmat_enqueue_ms = enqueue_ms(lambda: ops.cb_spmm(s, X))
+    crow = torch.from_numpy(np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=m))]))
+    A = torch.sparse_csr_tensor(crow.to(DEV), torch.from_numpy(cols).to(DEV),
+                                torch.from_numpy(vals.astype(np.float32)).to(DEV), size=(m, n))
+    lib_err = float((Y - A @ X).abs().max())
+    library_ms = time_ms(lambda: A @ X)
+    b_ms, b_by = bound(nbytes(s.tiles, s.bcol, s.brow, X) + m * N * 4,
+                       2 * s.tiles.numel() * N)
+    emit("matmat", matrix=call, block_size=B, n_rhs=N, dtype="float32", tiles=num_tiles,
+         group_size=s.group_size, groups=s.num_groups, slots=s.num_groups * s.slots,
+         stream_bytes=s.region_nbytes()["tiles"],
+         host_seconds=dict(tile_stream_from_cb=t_tiles, build_super_tile_stream=t_pack,
+                           to_device=t_to, first_call=t_first),
+         launches=counted, spmm_ms=matmat_ms, spmm_enqueue_ms=matmat_enqueue_ms,
+         kernel_ms={k: v["ms"] for k, v in rows_out.items()},
+         bound_ms=b_ms, bound_by=b_by,
+         library_ms=library_ms, library="torch.sparse CSR A @ X",
+         err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
+         err_vs_library_abs=lib_err, runs_bit_equal=True)
+
+
+def block_grads(W_grad, spec):
+    """The (nt, B, B) tiles of dA = dW^T at the spec's blocks."""
+    B = spec.block_size
+    g = W_grad.T.reshape(spec.mb, B, spec.nb, B).permute(0, 2, 1, 3)
+    return g[torch.from_numpy(spec.brow).long(), torch.from_numpy(spec.bcol).long()]
+
+
+def run_mlp_train(seed, per_kernel, launches):
+    """One training step of the cb-paper MLP (granite-8b widths) at full size."""
+    d, ff, B, keep, T = (MLP[k] for k in ("d_model", "d_ff", "block_size", "keep_fraction",
+                                          "tokens"))
+    lr = 1e-2
+    # the specs of ``repro.models.layers.build_mlp_specs`` (seeds 42, 43, 44)
+    specs = {
+        "gate": sparse_linear.cb_spec_random(d, ff, block_size=B, keep_fraction=keep, seed=42),
+        "up": sparse_linear.cb_spec_random(d, ff, block_size=B, keep_fraction=keep, seed=43),
+        "down": sparse_linear.cb_spec_random(ff, d, block_size=B, keep_fraction=keep, seed=44),
+    }
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    layers = {k: sparse_linear.CBSparseLinear(sp, generator=gen, device=DEV)
+              for k, sp in specs.items()}
+    x = torch.randn((T, d), generator=gen, device=DEV)
+    target = torch.randn((T, d), generator=gen, device=DEV)
+
+    def forward(xx):
+        h = torch.nn.functional.silu(layers["gate"](xx)) * layers["up"](xx)
+        return layers["down"](h)
+
+    def step(update: bool):
+        xx = x.detach().requires_grad_(True)
+        for layer in layers.values():
+            layer.tiles.grad = None
+        y = forward(xx)
+        loss = ((y - target) ** 2).mean()
+        loss.backward()
+        if update:
+            with torch.no_grad():
+                for layer in layers.values():
+                    layer.tiles.sub_(lr * layer.tiles.grad)
+        return loss, y.detach(), xx.grad
+
+    # -- the step, counted (no update yet: the checks below use this state) --------
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, y, dx = step(update=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0                 # holds the routes' host sorts
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    for k, c in counted.items():
+        launches[k] += c
+    for k in ("spmm", "combine"):
+        if counted[k] < 1:
+            fail(f"mlp_train: kernel {k} was not launched by the training step")
+    grads = {k: layer.tiles.grad.clone() for k, layer in layers.items()}
+    _, y2, dx2 = step(update=False)
+    torch.cuda.synchronize()
+    bit_equal = {"y": torch.equal(y, y2), "dX": torch.equal(dx, dx2),
+                 "d_tiles": all(torch.equal(grads[k], layers[k].tiles.grad) for k in layers)}
+    if not (bit_equal["y"] and bit_equal["dX"]):
+        fail(f"mlp_train: two steps from the same state differ: {bit_equal}")
+    del y2, dx2
+    if not all(torch.isfinite(t).all() for t in (y, dx, *grads.values())):
+        fail("mlp_train: non-finite y, dX or d_tiles")
+
+    # -- the same step in float64 with dense masked weights ---------------------------
+    W64 = {k: sparse_linear.dense_equivalent({"tiles": layer.tiles.detach().double()},
+                                             layer.spec).requires_grad_(True)
+           for k, layer in layers.items()}
+    x64 = x.double().requires_grad_(True)
+    y64 = (torch.nn.functional.silu(x64 @ W64["gate"]) * (x64 @ W64["up"])) @ W64["down"]
+    ((y64 - target.double()) ** 2).mean().backward()
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    err = {"y": rel(y, y64.detach()), "dX": rel(dx, x64.grad),
+           "d_tiles": {k: rel(grads[k], block_grads(W64[k].grad, layers[k].spec))
+                       for k in layers}}
+    worst = max(err["y"], err["dX"], *err["d_tiles"].values())
+    if worst > TRAIN_TOL:
+        fail(f"mlp_train: differs from the float64 dense step: {err}")
+    del W64, x64, y64, y, dx, grads
+
+    # -- timed steps (with the update) ---------------------------------------------
+    def timed_step():
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xx = x.detach().requires_grad_(True)
+        for layer in layers.values():
+            layer.tiles.grad = None
+        e0.record()
+        loss = ((forward(xx) - target) ** 2).mean()
+        e1.record()
+        loss.backward()
+        e2.record()
+        with torch.no_grad():
+            for layer in layers.values():
+                layer.tiles.sub_(lr * layer.tiles.grad)
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, e0.elapsed_time(e1), e1.elapsed_time(e2), enq * 1e3
+
+    timed_step()                                       # warm
+    runs = [timed_step() for _ in range(5)]
+    step_ms, forward_ms, backward_ms, step_enqueue_ms = (
+        statistics.median(r[i] for r in runs) for i in range(4))
+
+    # -- each part of a layer's products at its real shapes --------------------------
+    parts = {}
+    for name in ("gate", "down"):
+        layer, spec = layers[name], specs[name]
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        tiles = layer.tiles.detach()
+        X = (x if name == "gate" else torch.randn((T, ff), generator=gen, device=DEV)).T
+        dY = torch.randn((spec.out_features, T), generator=gen, device=DEV)
+        Xb = ops.x_blocks(X, spec.nb, B)
+        dYb = ops.x_blocks(dY, spec.mb, B)
+        tT = mm.transposed_tiles(tiles)
+        fwd = spmm_rows(f"mlp_train {name} forward", "mlp_train step", tiles.view(-1, B, B),
+                        mm.fwd.route.bcol, Xb, mm.fwd.route, spec.out_features, counted,
+                        per_kernel)
+        dxr = spmm_rows(f"mlp_train {name} dX", "mlp_train step", tT, mm.bwd.route.bcol, dYb,
+                        mm.bwd.route, spec.in_features, counted, per_kernel)
+        parts[name] = dict(
+            spmm_forward_ms=fwd["spmm"]["ms"], spmm_dX_ms=dxr["spmm"]["ms"],
+            combine_forward_ms=fwd["combine"]["ms"], combine_dX_ms=dxr["combine"]["ms"],
+            dW_bmm_ms=time_ms(lambda: torch.bmm(
+                torch.index_select(dYb, 0, mm.fwd.brow),
+                torch.index_select(Xb, 0, mm.fwd.bcol).transpose(1, 2)), 5),
+            transposed_tiles_ms=time_ms(lambda: mm.transposed_tiles(tiles)),
+            x_copy_ms=time_ms(lambda: ops.x_blocks(X, spec.nb, B)),
+            dY_copy_ms=time_ms(lambda: ops.x_blocks(dY, spec.mb, B)))
+        del mm, Xb, dYb, tT, X, dY
+        torch.cuda.empty_cache()
+
+    # -- the dense yardstick: the same step with dense masked float32 weights ----------
+    Wd = {k: sparse_linear.dense_equivalent({"tiles": layer.tiles.detach()},
+                                            layer.spec).contiguous().requires_grad_(True)
+          for k, layer in layers.items()}
+
+    def dense_step():
+        xx = x.detach().requires_grad_(True)
+        for w in Wd.values():
+            w.grad = None
+        h = torch.nn.functional.silu(xx @ Wd["gate"]) * (xx @ Wd["up"])
+        ((h @ Wd["down"] - target) ** 2).mean().backward()
+        with torch.no_grad():
+            for w in Wd.values():
+                w.sub_(lr * w.grad)
+
+    dense_ms = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dense_ms["tf32_on" if tf32 else "tf32_off"] = time_ms(dense_step, 3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del Wd
+
+    flops = sum(3 * 2 * sp.num_tiles * B * B * T for sp in specs.values())
+    tile_bytes = sum(layer.tiles.numel() * 4 for layer in layers.values())
+    b_ms, b_by = bound(3 * T * d * 4 + 2 * tile_bytes, flops)
+    emit("mlp_train", config=f"cb-paper MLP: granite-8b d_model {d}, d_ff {ff}, "
+         f"CB-sparse SwiGLU, B={B}, keep {keep}", tokens=T, dtype="float32",
+         layers={k: dict(in_features=sp.in_features, out_features=sp.out_features,
+                         tiles=sp.num_tiles, tile_bytes=sp.num_tiles * B * B * 4)
+                 for k, sp in specs.items()},
+         launches=counted, first_step_s=t_first, loss=float(loss.detach()),
+         step_ms=step_ms, forward_ms=forward_ms, backward_ms=backward_ms,
+         step_enqueue_ms=step_enqueue_ms, step_runs_ms=[r[0] for r in runs],
+         parts_ms=parts, flops=flops, achieved_TFLOPs=flops / step_ms / 1e9,
+         bound_ms=b_ms, bound_by=b_by,
+         dense_step_ms=dense_ms, dense="torch.matmul, dense masked float32 weights, "
+         "4x the flops; tf32_off: allow_tf32 False, tf32_on: allow_tf32 True",
+         err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal,
+         d_tiles_note=None if bit_equal["d_tiles"] else
+         "dW is cuBLAS bmm, whose algorithm choice may differ between calls")
 
 
 def main() -> None:
@@ -440,6 +845,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False      # yardsticks in full float32
+    torch.backends.cudnn.allow_tf32 = False
     card = smi()
     nvcc = subprocess.run([_build._find_nvcc(), "--version"], check=True, capture_output=True,
                           text=True).stdout
@@ -461,8 +868,13 @@ def main() -> None:
     per_kernel = {k: [] for k in WRAPPERS}
     launches = {k: 0 for k in WRAPPERS}
     for name, heavy, call, make, shape in make_matrices(args.seed):
-        run_matrix(name, heavy, call, make, shape, args.seed, per_kernel, launches)
+        cb, coo = run_matrix(name, heavy, call, make, shape, args.seed, per_kernel, launches)
+        if name == "banded":                    # the solver's multi-RHS product, same matrix
+            run_matmat(call, cb, coo, args.seed, per_kernel, launches)
+        del cb, coo
         torch.cuda.empty_cache()
+    run_mlp_train(args.seed, per_kernel, launches)
+    torch.cuda.empty_cache()
 
     kernels = []
     for k in WRAPPERS:
@@ -476,7 +888,7 @@ def main() -> None:
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"],
-            launches_per_call={r["matrix"]: r["launches"] for r in per_kernel[k]},
+            launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]},
             at=head["matrix"], shape=head["shape"],
             per_matrix=per_kernel[k]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Reference (oracle) SpMV over the CB structure — pure numpy.
 
-``spmv_ref`` unpacks the packed buffer through the virtual pointers, so it
-exercises the *format*, not just the linear algebra; ``dense_oracle`` is
-the straight COO product that never touches the CB machinery.
+``spmv_ref`` / ``spmm_ref`` unpack the packed buffer through the virtual
+pointers, so they exercise the *format*, not just the linear algebra;
+``dense_oracle`` is the straight COO product that never touches the CB
+machinery.
 """
 from __future__ import annotations
 
@@ -23,6 +24,19 @@ def spmv_ref(cb: CBMatrix, x: np.ndarray) -> np.ndarray:
     acc_dtype = np.result_type(cb.val_dtype, x.dtype, np.float32)
     r, c, v = cb.global_elements()
     return _row_sums(r, v.astype(acc_dtype) * x[c].astype(acc_dtype), m, acc_dtype)
+
+
+def spmm_ref(cb: CBMatrix, X: np.ndarray) -> np.ndarray:
+    """Y = A @ X for a dense right-hand side (n, k), one column at a time."""
+    m, n = cb.shape
+    X = np.asarray(X)
+    acc_dtype = np.result_type(cb.val_dtype, X.dtype, np.float32)
+    r, c, v = cb.global_elements()
+    v = v.astype(acc_dtype)
+    Y = np.zeros((m, X.shape[1]), acc_dtype)
+    for j in range(X.shape[1]):
+        Y[:, j] = _row_sums(r, v * X[c, j].astype(acc_dtype), m, acc_dtype)
+    return Y
 
 
 def dense_oracle(rows, cols, vals, shape, x) -> np.ndarray:

@@ -35,6 +35,10 @@ Two stream granularities share this layout:
     assigns blocks to groups so every group carries near-equal payload —
     the paper's inter-block load balancing at group granularity.
 
+The SpMM path has its own two: ``TileStream`` (every block densified to
+a ``(B, B)`` tile, canonical ``(brow, bcol)`` order) and
+``SuperTileStream`` (``Gt`` tiles stacked per group, nnz-balanced).
+
 The layout is the JAX package's, array for array and bit for bit (slot
 width 8, ``even_group``, ``TARGET_STEP_ELEMS``, ``MAX_GROUP_SIZE``), so
 streams of the two packages can be diffed. The packing code is host-side
@@ -54,6 +58,7 @@ from repro_torch import errors
 from . import balance as balance_mod
 from . import column_agg as column_agg_mod
 from .aggregation import coord_bits, typed_view
+from .blocking import partition_coo
 from .cb_matrix import CBMatrix
 from .formats import FMT_COO, FMT_CSR, FMT_DENSE
 
@@ -63,6 +68,8 @@ from .formats import FMT_COO, FMT_CSR, FMT_DENSE
 
 SUBLANE = 8  # slot width: payload widths align to this many lanes
 
+LANE = 128  # the JAX package's SpMM activation-tile width multiple
+
 
 def pad_width(width: int, mult: int = SUBLANE) -> int:
     """Round a payload width up to the slot multiple.
@@ -71,6 +78,20 @@ def pad_width(width: int, mult: int = SUBLANE) -> int:
     (the dispatch layer skips the format entirely).
     """
     return -(-int(width) // mult) * mult
+
+
+def spmm_block_n(n_cols: int, block_n: int = LANE) -> int:
+    """The JAX package's SpMM activation-tile width: ``N`` rounded up to a
+    ``LANE`` multiple, capped at ``block_n`` (itself a ``LANE`` multiple).
+
+    The 128-lane rule is the TPU compiler's. The port keeps it for the
+    launch accounting (``ops.spmm_launch_stats``) and for validating
+    ``block_n``; its CUDA kernel takes N as it is and masks the tail.
+    """
+    if block_n % LANE:
+        raise errors.InvalidArgError(
+            f"block_n must be a multiple of {LANE} lanes, got {block_n}")
+    return min(block_n, pad_width(max(int(n_cols), 1), LANE))
 
 
 # Aim each group's payload at about this many elements. These are the
@@ -292,6 +313,94 @@ class SuperBlockStreams(_StreamOps):
         }
 
 
+_TILE_FIELDS = ("tiles", "brow", "bcol")
+
+
+class _TileOps:
+    """What both SpMM tile-stream granularities share."""
+
+    def to(self, device=None, *, payload_dtype: torch.dtype | None = None):
+        """A copy on ``device`` (default: CUDA; see ``resolve_device``).
+
+        ``payload_dtype`` re-types the tiles; ``brow``/``bcol`` stay int32.
+        """
+        dev = resolve_device(device)
+        tiles = self.tiles if payload_dtype is None else self.tiles.to(payload_dtype)
+        return dataclasses.replace(self, tiles=tiles.to(dev), brow=self.brow.to(dev),
+                                   bcol=self.bcol.to(dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+    @property
+    def val_itemsize(self) -> int:
+        """Bytes per weight element (payload dtype width)."""
+        return int(self.tiles.element_size())
+
+    def padded_work(self) -> dict:
+        """Weight elements one full sweep streams, padding included."""
+        return {"tiles": int(self.tiles.numel())}
+
+    def region_nbytes(self) -> dict:
+        """Byte size of the weight buffer one SpMM sweep streams."""
+        return {"tiles": int(self.tiles.numel()) * self.val_itemsize}
+
+
+@dataclasses.dataclass(eq=False)
+class TileStream(_TileOps):
+    """Block-dense (BSR-like) stream for CB-SpMM, one tile per row.
+
+    Tiles are in canonical ``(brow, bcol)`` order, and every block row owns
+    at least one (possibly all-zero) tile; both builders
+    (``build_tile_stream`` from COO, ``tile_stream_from_cb`` from a
+    CBMatrix) emit the same stream for the same matrix.
+    """
+
+    block_size: int
+    m: int
+    n: int
+    mb: int
+    nb: int
+    tiles: torch.Tensor   # (nt, B, B)
+    brow: torch.Tensor    # (nt,) int32, ascending
+    bcol: torch.Tensor    # (nt,) int32, ascending within each block row
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+
+@dataclasses.dataclass(eq=False)
+class SuperTileStream(_TileOps):
+    """Tile stream with ``Gt`` tiles stacked per group.
+
+    Slot ``g`` of group ``i`` owns rows ``[g*B, (g+1)*B)`` of the
+    ``(Gt*B, B)`` super-tile; its partial goes to output block row
+    ``brow[i, g]`` and it multiplies X block row ``bcol[i, g]``. Slots the
+    packer left empty hold a zero tile with ``brow``/``bcol`` 0 and add
+    exact zeros into output row 0.
+    """
+
+    block_size: int
+    m: int
+    n: int
+    mb: int
+    nb: int
+    group_size: int       # requested tiles per group (packer target)
+    tiles: torch.Tensor   # (gt, Gt*B, B)
+    brow: torch.Tensor    # (gt, Gt) int32
+    bcol: torch.Tensor    # (gt, Gt) int32
+
+    @property
+    def num_groups(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def slots(self) -> int:
+        return self.brow.shape[1]
+
+
 def _as_tensor(arr) -> torch.Tensor:
     """numpy -> CPU tensor, bit for bit (bfloat16 arrays included)."""
     arr = np.ascontiguousarray(arr)
@@ -305,22 +414,28 @@ def _as_tensor(arr) -> torch.Tensor:
 def streams_from_numpy(kind: str, fields: dict, meta: dict):
     """Build a stream object from plain numpy arrays.
 
-    ``kind`` is ``"flat"`` (``SpMVStreams``) or ``"super"``
-    (``SuperBlockStreams``); ``fields`` maps the ten array-field names to
-    numpy arrays and ``meta`` the static fields to ints/bools. This is
-    how stream bytes packed elsewhere (by the JAX package, or read from
-    disk) enter the port unchanged; the tensors live on the CPU until
-    ``.to(device)``.
+    ``kind`` is ``"flat"`` (``SpMVStreams``), ``"super"``
+    (``SuperBlockStreams``), ``"tile"`` (``TileStream``) or
+    ``"super_tile"`` (``SuperTileStream``); ``fields`` maps the array-field
+    names (ten for the SpMV streams, ``tiles``/``brow``/``bcol`` for the
+    tile streams) to numpy arrays and ``meta`` the static fields to
+    ints/bools. This is how stream bytes packed elsewhere (by the JAX
+    package, or read from disk) enter the port unchanged; the tensors
+    live on the CPU until ``.to(device)``.
     """
-    classes = {"flat": SpMVStreams, "super": SuperBlockStreams}
+    classes = {"flat": (SpMVStreams, _STREAM_FIELDS),
+               "super": (SuperBlockStreams, _STREAM_FIELDS),
+               "tile": (TileStream, _TILE_FIELDS),
+               "super_tile": (SuperTileStream, _TILE_FIELDS)}
     if kind not in classes:
         raise errors.InvalidArgError(
-            f"unknown stream kind {kind!r}; expected 'flat' or 'super'")
-    missing = [f for f in _STREAM_FIELDS if f not in fields]
+            f"unknown stream kind {kind!r}; expected one of {sorted(classes)}")
+    cls, names = classes[kind]
+    missing = [f for f in names if f not in fields]
     if missing:
         raise errors.InvalidArgError(f"stream fields missing: {missing}")
-    tensors = {f: _as_tensor(fields[f]) for f in _STREAM_FIELDS}
-    return classes[kind](**meta, **tensors)
+    tensors = {f: _as_tensor(fields[f]) for f in names}
+    return cls(**meta, **tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -563,3 +678,107 @@ def build_super_streams(
         panel_vals=p_vals, panel_brow=p_brow, panel_xidx=p_xidx,
         coo_codes=c_codes, coo_vals=c_vals, coo_brow=c_brow, coo_xidx=c_xidx,
     ))
+
+
+# ---------------------------------------------------------------------------
+# SpMM tile streams: block-dense weights for the multi-RHS / training path.
+# ---------------------------------------------------------------------------
+
+def _canonical_tiles(tiles, brow, bcol, mb: int, block_size: int, dtype):
+    """Add a zero coverage tile (bcol 0) for every block row without one,
+    then sort tiles into canonical ``(brow, bcol)`` order."""
+    B = block_size
+    missing = np.setdiff1d(np.arange(mb, dtype=np.int32), brow)
+    if len(missing):
+        tiles = np.concatenate([tiles, np.zeros((len(missing), B, B), dtype)])
+        brow = np.concatenate([brow, missing])
+        bcol = np.concatenate([bcol, np.zeros(len(missing), np.int32)])
+    order = np.lexsort((bcol, brow))
+    return tiles[order], brow[order], bcol[order]
+
+
+def build_tile_stream(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                      shape: tuple[int, int], block_size: int) -> TileStream:
+    """Build the block-dense stream directly from COO triplets (host-side).
+
+    Duplicates are summed (``partition_coo``); every block becomes one
+    ``(B, B)`` tile, scattered in one array operation.
+    """
+    m, n = shape
+    B = int(block_size)
+    mb, nb = -(-m // B), -(-n // B)
+    part = partition_coo(rows, cols, vals, shape, B)
+    tiles = np.zeros((part.num_blocks, B, B), part.values.dtype)
+    blk = np.repeat(np.arange(part.num_blocks), part.nnz_per_blk)
+    tiles[blk, part.local_rows, part.local_cols] = part.values
+    tiles, brow, bcol = _canonical_tiles(
+        tiles, part.blk_row_idx.astype(np.int32), part.blk_col_idx.astype(np.int32),
+        mb, B, np.asarray(vals).dtype)
+    return _wrap(TileStream, dict(block_size=B, m=m, n=n, mb=mb, nb=nb),
+                 dict(tiles=tiles, brow=brow, bcol=bcol))
+
+
+def tile_stream_from_cb(cb: CBMatrix) -> TileStream:
+    """Densify every CB block into the tile stream (all formats -> tiles).
+
+    Column aggregation is folded back to original coordinates, so the
+    stream is position-faithful and bit-equal to ``build_tile_stream`` on
+    the same triplets.
+    """
+    B = cb.block_size
+    m, n = cb.shape
+    mb, nb = -(-m // B), -(-n // B)
+    r, gc, v = cb.global_elements()
+    key = (r // B) * nb + gc // B          # ascending unique keys = (brow, bcol)
+    ukeys, inv = np.unique(key, return_inverse=True)
+    tiles = np.zeros((len(ukeys), B, B), cb.val_dtype)
+    tiles[inv.reshape(-1), r % B, gc % B] = v
+    # every (row, col) is stored once, so this equals adding into zeros,
+    # except that a stored -0.0 must come out +0.0 as it does there
+    tiles += tiles.dtype.type(0)
+    tiles, brow, bcol = _canonical_tiles(
+        tiles, (ukeys // nb).astype(np.int32), (ukeys % nb).astype(np.int32),
+        mb, B, cb.val_dtype)
+    return _wrap(TileStream, dict(block_size=B, m=m, n=n, mb=mb, nb=nb),
+                 dict(tiles=tiles, brow=brow, bcol=bcol))
+
+
+def build_super_tile_stream(ts: TileStream, group_size: int | None = None) -> SuperTileStream:
+    """Pack SpMM tiles into nnz-balanced super-tile groups (host-side).
+
+    ``group_size=None`` picks ``group_size_for(B)``. Tiles are assigned to
+    groups by the Alg. 2 heap balancer on per-tile nnz, with slots evened
+    by ``even_group``; the balanced slot order is kept as it is (the
+    combine makes the result independent of slot order). The tensors live
+    on the CPU until ``.to(device)``.
+    """
+    B = ts.block_size
+    G = group_size_for(B) if group_size is None else int(group_size)
+    if G < 1:
+        raise errors.InvalidArgError(f"group_size must be >= 1, got {G}")
+    tiles = ts.tiles.cpu()
+    nt = tiles.shape[0]
+    if nt:
+        _, Gt = even_group(nt, G)
+        load = torch.count_nonzero(tiles, dim=(1, 2)).numpy().astype(np.int64)
+        bal = balance_mod.grid_group_balance(load, Gt)
+        gt = bal.num_groups
+        at = torch.from_numpy(np.flatnonzero(bal.slots >= 0))   # flat (group, slot)
+        blk = torch.from_numpy(bal.slots[at.numpy()])
+        s_tiles = torch.zeros((gt, Gt * B, B), dtype=tiles.dtype)
+        s_brow = torch.zeros((gt, Gt), dtype=torch.int32)
+        s_bcol = torch.zeros((gt, Gt), dtype=torch.int32)
+        s_tiles.view(gt * Gt, B, B)[at] = tiles[blk]
+        s_brow.view(-1)[at] = ts.brow.cpu()[blk]
+        s_bcol.view(-1)[at] = ts.bcol.cpu()[blk]
+    else:
+        s_tiles = torch.zeros((0, G * B, B), dtype=tiles.dtype)
+        s_brow = torch.zeros((0, G), dtype=torch.int32)
+        s_bcol = torch.zeros((0, G), dtype=torch.int32)
+    return SuperTileStream(block_size=B, m=ts.m, n=ts.n, mb=ts.mb, nb=ts.nb, group_size=G,
+                           tiles=s_tiles, brow=s_brow, bcol=s_bcol)
+
+
+def super_tile_stream_from_cb(cb: CBMatrix, group_size: int | None = None) -> SuperTileStream:
+    """Full CB pipeline -> densified tiles -> balanced super-tile groups."""
+    return build_super_tile_stream(tile_stream_from_cb(cb), group_size=group_size)

@@ -29,7 +29,7 @@ from repro_torch import errors
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu")
+SOURCES = ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu", "cb_spmm.cu")
 HEADERS = ("cb_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,7 +104,9 @@ def _declare(lib) -> None:
     lib.cb_panel_spmv.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
     lib.cb_coo_spmv.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
     lib.cb_segment_sum.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i64, ptr]
-    for fn in (lib.cb_dense_spmv, lib.cb_panel_spmv, lib.cb_coo_spmv, lib.cb_segment_sum):
+    lib.cb_spmm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    for fn in (lib.cb_dense_spmv, lib.cb_panel_spmv, lib.cb_coo_spmv, lib.cb_segment_sum,
+               lib.cb_spmm):
         fn.restype = i32
     lib.cb_error_string.argtypes = [i32]
     lib.cb_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,14 @@
-"""The additive combine of CB-SpMV: per-slot partials -> y, in a fixed order.
+"""The additive combine: per-slot partials -> y, in a fixed order.
 
-Every format's kernel emits one ``(B,)`` partial per slot; slot ``t``
+Every kernel emits one partial row of width ``R`` per slot; slot ``t``
 belongs to block row ``brow[t]``. The combine adds them:
-``y2d[brow[t]] += parts[t]``. The JAX package leaves this to one XLA
-scatter-add around its kernels (``src/repro/kernels/ops.py``,
-``_combine_into``), which is deterministic there. On CUDA ``index_add_``
+``y2d[brow[t]] += parts[t]`` with ``y2d`` the ``(mb, R)`` view of a flat
+``y``. For SpMV ``R = B`` and ``y`` is ``(m,)``; for SpMM ``R = B*N`` and
+``y`` is the flat view of a contiguous ``(m, N)`` result, so a slot's
+``(B, N)`` partial lands on its block row's ``B`` rows of Y. The JAX
+package leaves this to one XLA scatter-add around its kernels
+(``src/repro/kernels/ops.py``, ``_combine_into`` and ``_cb_spmm_jit``),
+which is deterministic there. On CUDA ``index_add_``
 and float ``atomicAdd`` are not: the order of the additions, and with it
 the last bits of y, can change from run to run.
 
@@ -81,38 +85,40 @@ def plan_combine(brow: torch.Tensor, device) -> CombinePlan:
 
 
 def combine_plain(y: torch.Tensor, parts: torch.Tensor, brow: torch.Tensor,
-                  block_size: int) -> torch.Tensor:
-    """Plain PyTorch version: ``y[brow[t]*B + b] += parts[t, b]`` in place.
+                  row_width: int) -> torch.Tensor:
+    """Plain PyTorch version: ``y[brow[t]*R + b] += parts[t, b]`` in place.
 
-    ``y`` is ``(m,)`` float32; elements of the ragged last block row past
-    ``m`` are dropped.
+    ``y`` is flat float32; elements of the ragged last block row past its
+    end are dropped.
     """
-    B = block_size
-    mb = -(-y.shape[0] // B)
-    y2d = torch.zeros((mb, B), dtype=torch.float32, device=y.device)
-    y2d.index_add_(0, brow.reshape(-1).long(), parts.reshape(-1, B))
+    R = row_width
+    mb = -(-y.shape[0] // R)
+    y2d = torch.zeros((mb, R), dtype=torch.float32, device=y.device)
+    y2d.index_add_(0, brow.reshape(-1).long(), parts.reshape(-1, R))
     return y.add_(y2d.reshape(-1)[: y.shape[0]])
 
 
 def segment_combine(y: torch.Tensor, parts: torch.Tensor, brow: torch.Tensor,
-                    block_size: int, plan: CombinePlan | None = None) -> torch.Tensor:
+                    row_width: int, plan: CombinePlan | None = None) -> torch.Tensor:
     """Add per-slot partials into ``y`` in place and return it.
 
-    ``y`` ``(m,)`` float32, ``parts`` ``(T, B)`` float32, ``brow`` ``(T,)``
-    int32. On CUDA, ``plan`` (from ``plan_combine(brow, device)``) fixes
+    ``y`` flat float32 (``(m,)``, or ``(m*N,)`` for SpMM), ``parts``
+    ``(T, R)`` float32, ``brow`` ``(T,)`` int32, ``R = row_width``. On CUDA, ``plan`` (from ``plan_combine(brow, device)``) fixes
     the order; leave it out to have it computed here (a host-side sort —
     callers that combine repeatedly keep the plan).
     ``segment_combine.launches`` counts kernel launches, one per level.
     """
-    B = int(block_size)
+    R = int(row_width)
     dev = y.device
     _build.require(y, "y", dtype=torch.float32)
     T = brow.numel()
-    _build.require(parts, "parts", dtype=torch.float32, shape=(T, B), device=dev)
-    if T == 0:
+    _build.require(parts, "parts", dtype=torch.float32, shape=(T, R), device=dev)
+    if T == 0 or R == 0:
         return y
     if dev.type != "cuda":
-        return combine_plain(y, parts, brow, B)
+        return combine_plain(y, parts, brow, R)
+    if R >= 2**31:
+        raise errors.InvalidArgError(f"combine row width {R} does not fit the kernel's int")
     if plan is None:
         plan = plan_combine(brow, dev)
     if plan.num_slots != T:
@@ -122,11 +128,11 @@ def segment_combine(y: torch.Tensor, parts: torch.Tensor, brow: torch.Tensor,
     src = parts
     for level in plan.levels:
         final = level.rows is not None
-        dst = y if final else torch.empty((level.nchunks, B), dtype=torch.float32, device=dev)
+        dst = y if final else torch.empty((level.nchunks, R), dtype=torch.float32, device=dev)
         code = lib.cb_segment_sum(
             src.data_ptr(), None if level.perm is None else level.perm.data_ptr(),
             level.ptr.data_ptr(), level.rows.data_ptr() if final else None,
-            dst.data_ptr(), level.nchunks, B, y.shape[0], _build.stream_ptr())
+            dst.data_ptr(), level.nchunks, R, y.shape[0], _build.stream_ptr())
         _build.check(code, "cb_segment_sum")
         segment_combine.launches += 1
         src = dst

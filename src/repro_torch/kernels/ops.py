@@ -1,4 +1,4 @@
-"""Public entry points for the CB-SpMV kernels.
+"""Public entry points for the CB-SpMV and CB-SpMM kernels.
 
 ``cb_spmv(streams, x)`` runs the batched super-block execution engine:
 x is gathered through each format's ``*_xidx`` (torch indexing with the
@@ -36,10 +36,11 @@ import torch.nn.functional as F
 
 from repro_torch import errors
 from repro_torch.core.streams import (
-    SUBLANE, SpMVStreams, SuperBlockStreams, even_group, resolve_device,
+    LANE, SUBLANE, SpMVStreams, SuperBlockStreams, SuperTileStream, TileStream,
+    even_group, resolve_device, spmm_block_n,
 )
 
-from . import cb_block_dense, cb_colagg, cb_coo, cb_combine, ref
+from . import cb_block_dense, cb_colagg, cb_coo, cb_combine, cb_spmm as cb_spmm_kernel, ref
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -236,10 +237,8 @@ def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tens
     return cb_combine.segment_combine(y, parts, prep.brow, B, prep.combine)
 
 
-def _enter(streams, x, impl, group_size, plan, device):
-    """Validate a call; return (x on the call's device, effective group size)."""
-    group_size = _resolve_plan(streams, plan, group_size)
-    _check_group_size(streams, group_size)
+def _check_impl_device(streams, impl, device) -> None:
+    """``impl`` is known and ``streams`` live where the call runs."""
     if impl not in ("cuda", "reference"):
         raise errors.InvalidArgError(f"unknown impl {impl!r}")
     dev = resolve_device(device)
@@ -247,6 +246,13 @@ def _enter(streams, x, impl, group_size, plan, device):
         raise errors.InvalidArgError(
             f"streams live on {streams.device} but the call runs on {dev}; "
             f"move them first with streams.to({dev.type!r})")
+
+
+def _enter(streams, x, impl, group_size, plan, device):
+    """Validate a call; return (x on the call's device, effective group size)."""
+    group_size = _resolve_plan(streams, plan, group_size)
+    _check_group_size(streams, group_size)
+    _check_impl_device(streams, impl, device)
     x = torch.as_tensor(x, device=streams.device)
     if x.shape != (streams.n,):
         raise errors.InvalidArgError(f"x has shape {tuple(x.shape)}, expected ({streams.n},)")
@@ -327,3 +333,192 @@ def cb_spmv_into(
         raise errors.InvalidArgError(
             "y_acc must be a contiguous float32 tensor for impl='cuda'")
     return _accumulate(y_acc, _prepare(streams, group_size), x)
+
+
+# ---------------------------------------------------------------------------
+# CB-SpMM: X blocks -> one kernel for every slot's partial -> one combine.
+# ---------------------------------------------------------------------------
+
+def _check_tile_group_size(stream, group_size) -> None:
+    """``cb_spmm``'s group-size contract (mirrors ``_check_group_size``)."""
+    if group_size is not None and group_size < 1:
+        raise errors.InvalidArgError(f"group_size must be >= 1, got {group_size}")
+    if isinstance(stream, SuperTileStream):
+        if group_size is not None and group_size != stream.group_size:
+            raise errors.InvalidArgError(
+                f"tile stream was packed with group_size={stream.group_size};"
+                f" cannot re-batch to {group_size} post hoc")
+
+
+def group_slots(t: torch.Tensor, G: int) -> torch.Tensor:
+    """``(nt, ...) -> (gt, Gt, ...)``: the super-tile layout of ``nt`` slots
+    at group size ``G`` (``even_group``'s geometry), zero rows padding a
+    ragged tail. A view when ``nt`` is already ``gt * Gt``."""
+    gt, Gt = even_group(t.shape[0], G)
+    if gt * Gt != t.shape[0]:
+        t = _pad_rows(t, gt * Gt)
+    return t.reshape(gt, Gt, *t.shape[1:])
+
+
+def _regroup_tiles(ts: TileStream, G: int) -> SuperTileStream:
+    """Fuse G one-tile rows per super-tile row with pure reshapes.
+
+    Padding rows appended to ragged tails carry a zero tile and brow/bcol
+    0, so they multiply X block 0 and add exact zeros into block row 0.
+    """
+    B = ts.block_size
+    tiles = group_slots(ts.tiles, G)
+    return SuperTileStream(
+        block_size=B, m=ts.m, n=ts.n, mb=ts.mb, nb=ts.nb, group_size=G,
+        tiles=tiles.reshape(tiles.shape[0], -1, B),
+        brow=group_slots(ts.brow, G), bcol=group_slots(ts.bcol, G),
+    )
+
+
+def spmm_launch_stats(stream: TileStream | SuperTileStream, group_size: int | None = None,
+                      *, n_cols: int | None = None, block_n: int = LANE) -> dict:
+    """``cb_spmm``'s analogue of :func:`spmv_launch_stats` — the JAX
+    package's accounting, number for number.
+
+    ``steps`` is the reference's grid size ``tile_groups * n_tiles_of_X``
+    (``spmm_block_n``'s 128-wide tiles) when ``n_cols`` is known, else the
+    group count. The CUDA kernel tiles N its own way (``csrc/cb_spmm.cu``)
+    but launches once per stream as the Pallas kernel does.
+    """
+    B = stream.block_size
+    if isinstance(stream, SuperTileStream):
+        G = stream.group_size
+        gt, Gt = stream.num_groups, stream.slots
+    else:
+        G = int(group_size or 1)
+        gt, Gt = even_group(stream.num_tiles, G)
+    padded = int(gt * Gt * B * B)
+    steps = int(gt)
+    if n_cols is not None and gt:
+        bn = spmm_block_n(int(n_cols), block_n)
+        steps = gt * (-(-int(n_cols) // bn))
+    return {
+        "group_size": int(G),
+        "steps": {"tiles": steps},
+        "padded": {"tiles": padded},
+        "launches": {"tiles": int(gt > 0)},
+        "steps_total": steps,
+        "padded_total": padded,
+    }
+
+
+@dataclasses.dataclass
+class TileRoute:
+    """Where every slot of a super-tile layout reads X and adds its partial.
+
+    Depends on the stream's metadata only, so one route serves every call
+    on the same structure, whatever the tile values (the sparse layer keeps
+    one per spec and direction).
+    """
+
+    group_size: int                             # slots are grouped by group_slots(., G)
+    bcol: torch.Tensor                          # (gt, Gt) int32 X block row per slot
+    brow: torch.Tensor                          # (gt*Gt,) int32 output block row per slot
+    combine: cb_combine.CombinePlan | None      # fixed summation order (CUDA only)
+
+
+def tile_route(brow: torch.Tensor, bcol: torch.Tensor, group_size: int = 1) -> TileRoute:
+    """The route of flat ``(nt,)`` tile metadata grouped at ``group_size``;
+    sorts on the host once."""
+    flat = group_slots(brow, group_size).reshape(-1).contiguous()
+    plan = (cb_combine.plan_combine(flat, flat.device)
+            if flat.device.type == "cuda" and flat.numel() else None)
+    return TileRoute(group_size=group_size, bcol=group_slots(bcol, group_size).contiguous(),
+                     brow=flat, combine=plan)
+
+
+def x_blocks(X: torch.Tensor, nb: int, block_size: int) -> torch.Tensor:
+    """X ``(n, N)`` as a contiguous ``(nb, B, N)`` of zero-padded row blocks.
+
+    float32 and bfloat16 stay as they are; other types become float32.
+    At most one copy: a contiguous X of ``nb*B`` rows is only viewed.
+    """
+    n, N = X.shape
+    dt = X.dtype if X.dtype in cb_spmm_kernel.X_DTYPES else torch.float32
+    rows = nb * block_size
+    if n == rows and X.dtype == dt and X.is_contiguous():
+        return X.view(nb, block_size, N)
+    Xb = torch.empty((rows, N), dtype=dt, device=X.device)
+    Xb[:n].copy_(X)
+    Xb[n:].zero_()
+    return Xb.view(nb, block_size, N)
+
+
+def spmm_routed(route: TileRoute, tiles: torch.Tensor, Xb: torch.Tensor, m: int) -> torch.Tensor:
+    """Y ``(m, N)`` float32 = the product of the flat ``(nt, B, B)`` tiles
+    the route was built for with the X blocks ``Xb``: one kernel launch,
+    one combine. The tiles are grouped as the route says (a view unless
+    the tail is ragged)."""
+    _, B, N = Xb.shape
+    Y = torch.zeros((m, N), dtype=torch.float32, device=Xb.device)
+    if route.brow.numel() == 0 or N == 0:
+        return Y
+    grouped = group_slots(tiles, route.group_size)
+    parts = cb_spmm_kernel.super_tile_spmm(grouped.reshape(grouped.shape[0], -1, B),
+                                           route.bcol, Xb)
+    cb_combine.segment_combine(Y.view(-1), parts.view(route.brow.numel(), B * N),
+                               route.brow, B * N, route.combine)
+    return Y
+
+
+def _prepare_tiles(stream, group_size) -> tuple[SuperTileStream, TileRoute]:
+    """Regroup (flat streams) and fix the combine order, cached on ``stream``."""
+    key = None if isinstance(stream, SuperTileStream) else int(group_size or 1)
+    cache = stream.__dict__.setdefault("_prepared", {})
+    if key not in cache:
+        sup = stream if key is None else _regroup_tiles(stream, key)
+        cache[key] = (sup, tile_route(sup.brow.reshape(-1), sup.bcol.reshape(-1), sup.slots))
+    return cache[key]
+
+
+def cb_spmm(
+    stream: TileStream | SuperTileStream,
+    X: torch.Tensor,
+    *,
+    impl: str = "cuda",
+    block_n: int = LANE,
+    group_size: int | None = None,
+    plan=None,
+    device=None,
+) -> torch.Tensor:
+    """Y = A @ X over the block-dense tile stream. X: (n, N) -> Y: (m, N).
+
+    Mirrors :func:`cb_spmv`'s batched contract: a ``SuperTileStream``
+    carries its group size from the host-side nnz-balancing packer; a flat
+    ``TileStream`` is regrouped with pure reshapes when ``group_size=G`` is
+    passed (``None`` keeps one tile per group). ``plan`` supplies the
+    planner's group size, with the same conflict rules. ``device`` is where
+    the call runs (``None``: CUDA); the stream must live there.
+
+    ``block_n`` is validated as in the JAX package (a multiple of 128)
+    but sets no padding here: the TPU compiler needs 128-lane activation
+    tiles, the CUDA kernel takes N as it is and masks the tail, so N = 16
+    right-hand sides write 16 columns of partials, not 128. X is copied at
+    most once, into contiguous zero-padded ``(nb*B, N)`` blocks.
+
+    ``impl="cuda"`` returns float32. ``impl="reference"`` stays an
+    independent oracle on the layout as given (no regrouping) and
+    accumulates in the promoted dtype. The regrouped layout and the
+    combine's order are derived on the first call and cached on the
+    stream object; two calls with the same inputs return the same bits.
+    """
+    group_size = _resolve_plan(stream, plan, group_size)
+    _check_tile_group_size(stream, group_size)
+    spmm_block_n(1, block_n)
+    _check_impl_device(stream, impl, device)
+    X = torch.as_tensor(X, device=stream.device)
+    if X.ndim != 2 or X.shape[0] != stream.n:
+        raise errors.InvalidArgError(
+            f"X has shape {tuple(X.shape)}, expected ({stream.n}, N)")
+    if impl == "reference":
+        if isinstance(stream, SuperTileStream):
+            return ref.super_spmm(stream, X)
+        return ref.cb_spmm(stream, X)
+    sup, route = _prepare_tiles(stream, group_size)
+    B = sup.block_size
+    return spmm_routed(route, sup.tiles.reshape(-1, B, B), x_blocks(X, sup.nb, B), sup.m)

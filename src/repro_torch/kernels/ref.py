@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles for the CB-SpMV kernels (stream-level contracts).
+"""Plain PyTorch oracles for the CB-SpMV and CB-SpMM kernels (stream-level contracts).
 
 Each function mirrors a kernel's input contract so tests can sweep
 shapes/dtypes and compare kernel against oracle. They are also the
@@ -14,7 +14,9 @@ import functools
 import torch
 
 from repro_torch.core.aggregation import coord_bits
-from repro_torch.core.streams import SUBLANE, SpMVStreams, SuperBlockStreams
+from repro_torch.core.streams import (
+    SUBLANE, SpMVStreams, SuperBlockStreams, SuperTileStream, TileStream,
+)
 
 
 def _acc_dtype(*dts: torch.dtype) -> torch.dtype:
@@ -132,3 +134,55 @@ def super_spmv(s: SuperBlockStreams, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros(s.m, dtype=acc, device=x.device)
     y = _scatter_rows(torch.cat(parts), torch.cat(brows), mb)
     return y.reshape(-1)[: s.m]
+
+
+# ---------------------------------------------------------------------------
+# SpMM tile-stream oracles
+# ---------------------------------------------------------------------------
+
+def _x_blocks(X: torch.Tensor, nb: int, block_size: int, acc: torch.dtype) -> torch.Tensor:
+    """X (n, N) zero-padded to ``nb*B`` rows, as (nb, B, N) in ``acc``."""
+    Xp = torch.zeros((nb * block_size, X.shape[1]), dtype=acc, device=X.device)
+    Xp[: X.shape[0]] = X.to(acc)
+    return Xp.view(nb, block_size, X.shape[1])
+
+
+def _spmm_rows(part: torch.Tensor, brow: torch.Tensor, mb: int, m: int) -> torch.Tensor:
+    """Scatter-add per-tile (B, N) partials into block rows; cut to m rows."""
+    T, B, N = part.shape
+    Y = torch.zeros((mb, B, N), dtype=part.dtype, device=part.device)
+    Y.index_add_(0, brow.reshape(-1).long(), part)
+    return Y.reshape(mb * B, N)[:m]
+
+
+def cb_spmm(stream: TileStream, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X with A as a block-dense tile stream; X is (n, N)."""
+    acc = _acc_dtype(stream.tiles.dtype, X.dtype)
+    Xb = _x_blocks(X, stream.nb, stream.block_size, acc)
+    part = torch.einsum("trc,tcn->trn", stream.tiles.to(acc), Xb[stream.bcol.long()])
+    return _spmm_rows(part, stream.brow, stream.mb, stream.m)
+
+
+def super_spmm(s: SuperTileStream, X: torch.Tensor) -> torch.Tensor:
+    """CB-SpMM over packed super-tile groups — the batched ops contract.
+
+    Each group slot is an independent (B, B) @ (B, N) product routed by
+    the ``brow``/``bcol`` slot maps; empty slots hold zero tiles, so they
+    add exact zeros. ``cb_spmm`` above stays the unbatched oracle.
+    """
+    B = s.block_size
+    acc = _acc_dtype(s.tiles.dtype, X.dtype)
+    Xb = _x_blocks(X, s.nb, B, acc)
+    tiles = s.tiles.reshape(-1, B, B).to(acc)
+    part = torch.einsum("trc,tcn->trn", tiles, Xb[s.bcol.reshape(-1).long()])
+    return _spmm_rows(part, s.brow, s.mb, s.m)
+
+
+def cb_spmm_dense_equiv(stream: TileStream) -> torch.Tensor:
+    """Densify the tile stream (m, n) in its payload dtype (test utility)."""
+    B = stream.block_size
+    flat = torch.zeros((stream.mb * stream.nb, B, B), dtype=stream.tiles.dtype,
+                       device=stream.tiles.device)
+    flat.index_add_(0, (stream.brow.long() * stream.nb + stream.bcol.long()), stream.tiles)
+    return flat.reshape(stream.mb, stream.nb, B, B).permute(0, 2, 1, 3).reshape(
+        stream.mb * B, stream.nb * B)[: stream.m, : stream.n]

@@ -5,6 +5,7 @@ arrays to the JAX package ``repro`` and to the port ``repro_torch``; this
 module holds the scenario cut and the converters between the two.
 """
 import numpy as np
+import torch
 
 from conformance.scenarios import GROUP_SIZES, Scenario, spmv_scenarios
 from repro_torch.core import CBMatrix as TorchCBMatrix
@@ -48,6 +49,34 @@ def to_torch_streams(jax_streams):
     return tstreams.streams_from_numpy(kind, fields, meta)
 
 
+TILE_FIELDS = ("tiles", "brow", "bcol")
+TILE_META = ("block_size", "m", "n", "mb", "nb")
+
+
+def to_torch_tiles(jax_tiles):
+    """The port's tile stream holding a JAX-package tile stream's exact bytes."""
+    kind = "super_tile" if hasattr(jax_tiles, "group_size") else "tile"
+    meta = {k: getattr(jax_tiles, k) for k in TILE_META}
+    if kind == "super_tile":
+        meta["group_size"] = jax_tiles.group_size
+    fields = {f: np.asarray(getattr(jax_tiles, f)) for f in TILE_FIELDS}
+    return tstreams.streams_from_numpy(kind, fields, meta)
+
+
+def assert_tiles_equal(jax_tiles, torch_tiles, tag=""):
+    """Every tile-stream array (values, dtype, shape) and every static field."""
+    for f in TILE_FIELDS:
+        want = np.asarray(getattr(jax_tiles, f))
+        got = getattr(torch_tiles, f)
+        got = got.view(torch.int16).numpy().view(want.dtype) if got.dtype == torch.bfloat16 \
+            else got.numpy()
+        assert got.dtype == want.dtype, (tag, f, got.dtype, want.dtype)
+        assert got.shape == want.shape, (tag, f, got.shape, want.shape)
+        np.testing.assert_array_equal(got, want, err_msg=f"{tag} {f}")
+    for f in TILE_META + (("group_size",) if hasattr(jax_tiles, "group_size") else ()):
+        assert getattr(jax_tiles, f) == getattr(torch_tiles, f), (tag, f)
+
+
 def assert_streams_equal(jax_streams, torch_streams, tag=""):
     """Every array (values, dtype, shape) and every static field."""
     for f in STREAM_FIELDS:
@@ -61,4 +90,5 @@ def assert_streams_equal(jax_streams, torch_streams, tag=""):
 
 
 __all__ = ["GROUP_SIZES", "Scenario", "scenario_cut", "ids", "torch_cb",
-           "to_torch_streams", "assert_streams_equal", "STREAM_FIELDS"]
+           "to_torch_streams", "assert_streams_equal", "STREAM_FIELDS",
+           "to_torch_tiles", "assert_tiles_equal", "TILE_FIELDS"]
