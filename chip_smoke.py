@@ -12,9 +12,12 @@ the ``nvidia-smi`` line):
    (seconds it took).
 3. edge grid   — every hand-written kernel (dense, panel, coo, combine,
    spmm) against its plain PyTorch version on the card: B in {8, 16, 24}
-   (spmm also 128); payload float32, bfloat16, float64 (spmm's X float32 and
-   bfloat16); one group and many; W = 8 and a large odd multiple of 8; spmm
-   over G in {1, 4, 16} and N in {1, 20, 100, 129, 512}; an all-padding group;
+   (spmm also 64, 100 and 128, its tensor-core kernel); payload float32,
+   bfloat16, float64 (spmm's X float32 and bfloat16); one group and many;
+   W = 8 and a large odd multiple of 8; spmm over G in {1, 4, 16} and N in
+   {1, 16, 20, 33, 100, 129, 512} (B > 32: G in {1, 2}, N in {1, 20, 100,
+   127, 128, 129, 512, 1025, 2049}), and X a view one element past an aligned
+   base; an all-padding group;
    the combine at SpMM's wide rows (R = B*N) with a ragged last block row;
    random data within a tolerance and integer data bit for bit.
 4. ``spmv``, one line per matrix — the main path through the entry points a
@@ -43,8 +46,10 @@ the ``nvidia-smi`` line):
    on each matrix, one ``cb_spmm`` call, one training step, summed;
    ``launches_per_call`` has them apart, keyed by the counted run), worst error seen,
    time, plain version's time, the bound (the least time the card could
-   take: bytes moved over 3.35 TB/s against flops over 67 TFLOP/s float32),
-   and a library call's time where one computes the same function.
+   take: bytes moved over 3.35 TB/s against flops over the rate of the
+   arithmetic the kernel runs — 67 TFLOP/s float32, or 165 TFLOP/s for
+   the spmm kernel's 3xTF32 tensor-core products at B > 32), and a library
+   call's time where one computes the same function.
 8. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
@@ -87,6 +92,9 @@ from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+TF32X3_FLOPS_PER_S = 495e12 / 3  # H100 SXM dense TF32 tensor-core rate (NVIDIA data
+                                 # sheet), three TF32 products per float32-grade
+                                 # product: the spmm kernel's rate at B > 32
 REPS = 20                      # timed calls per batch (see time_ms)
 KERNEL_TOL = 1e-4              # kernel vs plain: f32 sums of <= 24 products (dense) or 8
                                # (panel, coo), <= 128 (spmm), or of a block row's slots
@@ -183,8 +191,8 @@ def enqueue_ms(fn, reps: int = REPS) -> float:
     return dt / reps * 1e3
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def bound(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -239,6 +247,12 @@ def combine_pair(m, parts, brow, B, plan=None, y=None):
     plan = plan or cb_combine.plan_combine(brow, DEV)
     return (lambda: run(cb_combine.segment_combine, plan),
             lambda: run(cb_combine.combine_plain))
+
+
+def spmm_flops_per_s(B: int) -> float:
+    """The rate of the arithmetic the spmm kernel runs at block size B
+    (csrc/cb_spmm.cu: 3xTF32 tensor cores above 32, float32 FMA below)."""
+    return TF32X3_FLOPS_PER_S if B > 32 else F32_FLOPS_PER_S
 
 
 def spmm_pair(tiles, bcol, Xb):
@@ -315,10 +329,13 @@ SPMM_DTYPES = [(t, x) for t in (torch.float32, torch.bfloat16, torch.float64)
 
 def spmm_edge_grid(gen, payload) -> int:
     """The SpMM kernel over B x G x N, every (tile, X) dtype pair in turn, one
-    group and many; an all-empty-slot group; the combine at R = B*N."""
+    group and many; an all-empty-slot group; X views one element past an
+    aligned base; the combine at R = B*N."""
     cases = 0
-    combos = [(B, G, N) for B in (8, 16, 24) for G in (1, 4, 16) for N in (1, 20, 100, 129, 512)]
-    combos += [(128, G, N) for G in (1, 2) for N in (1, 20, 100, 129, 512)]
+    combos = [(B, G, N) for B in (8, 16, 24) for G in (1, 4, 16)
+              for N in (1, 16, 20, 33, 100, 129, 512)]
+    combos += [(B, G, N) for B in (64, 100, 128) for G in (1, 2)
+               for N in (1, 20, 100, 127, 128, 129, 512, 1025, 2049)]
     for i, (B, G, N) in enumerate(combos):
         tdt, xdt = SPMM_DTYPES[i % len(SPMM_DTYPES)]
         groups, nb = (1, 3) if (i // len(SPMM_DTYPES)) % 2 else (13, 29)
@@ -337,6 +354,14 @@ def spmm_edge_grid(gen, payload) -> int:
             compare("spmm", got, p(), f"B={B} G={G} N={N} empty slots", exact=True)
             if got.any():
                 fail(f"spmm: empty slots at B={B} G={G} N={N} are not exact zeros")
+            cases += 1
+    # X a contiguous view one element past an aligned base: the kernels' 4-byte copies
+    for B, G, N in ((16, 4, 20), (128, 2, 20)):
+        for integer in (False, True):
+            bcol = torch.randint(0, 29, (13, G), generator=gen).to(torch.int32).to(DEV)
+            Xb = payload((29 * B * N + 1,), torch.float32, integer)[1:].view(29, B, N)
+            k, p = spmm_pair(payload((13, G * B, B), torch.float32, integer), bcol, Xb)
+            compare("spmm", k(), p(), f"B={B} G={G} N={N} X at a 4-byte offset", exact=integer)
             cases += 1
     # the combine at SpMM's row width R = B*N, last block row ragged
     for B, N, T, mb in ((16, 16, 5000, 300), (24, 129, 700, 40), (128, 512, 300, 7)):
@@ -520,10 +545,11 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
 # the SpMM paths: the solver's multi-RHS product and the sparse MLP's step
 # ---------------------------------------------------------------------------
 
-def kernel_row(path, run, shape, nb, fl, launched, kern, plain, lib, lib_name):
+def kernel_row(path, run, shape, nb, fl, launched, kern, plain, lib, lib_name,
+               flops_per_s=F32_FLOPS_PER_S):
     """One timed row of the ``kernels`` line (kernel, plain, library call);
     ``launched`` is the kernel's launch count in the counted ``run``."""
-    b_ms, b_by = bound(nb, fl)
+    b_ms, b_by = bound(nb, fl, flops_per_s)
     return dict(matrix=path, run=run, shape=shape, bytes=nb, flops=fl, launches=launched,
                 ms=time_ms(kern), plain_ms=time_ms(plain, max(3, REPS // 4)),
                 bound_ms=b_ms, bound_by=b_by,
@@ -568,7 +594,8 @@ def spmm_rows(path, run, tiles, bcol, Xb, route, m, launched, per_kernel):
     out = {
         "spmm": kernel_row(path, run, tuple(tiles.shape) + (N,),
                            nbytes(tiles, bcol, Xb) + T * B * N * 4, 2 * T * B * B * N,
-                           launched["spmm"], kern, plain, library, "torch.bmm (X pre-gathered)"),
+                           launched["spmm"], kern, plain, library, "torch.bmm (X pre-gathered)",
+                           spmm_flops_per_s(B)),
         "combine": kernel_row(path, run, tuple(parts.shape), nbytes(parts) + plan_bytes + 2 * m * N * 4,
                               parts.numel(), launched["combine"], kc, pc,
                               lambda: combine_library(y_acc), "index_add_"),
@@ -822,7 +849,10 @@ def run_mlp_train(seed, per_kernel, launches):
 
     flops = sum(3 * 2 * sp.num_tiles * B * B * T for sp in specs.values())
     tile_bytes = sum(layer.tiles.numel() * 4 for layer in layers.values())
-    b_ms, b_by = bound(3 * T * d * 4 + 2 * tile_bytes, flops)
+    # the step's bound with every product at the spmm kernel's 3xTF32 rate (dW is
+    # a float32 cuBLAS bmm today), and the CUDA-core float32 floor beside it
+    b_ms, b_by = bound(3 * T * d * 4 + 2 * tile_bytes, flops, TF32X3_FLOPS_PER_S)
+    f32_floor_ms, _ = bound(3 * T * d * 4 + 2 * tile_bytes, flops)
     emit("mlp_train", config=f"cb-paper MLP: granite-8b d_model {d}, d_ff {ff}, "
          f"CB-sparse SwiGLU, B={B}, keep {keep}", tokens=T, dtype="float32",
          layers={k: dict(in_features=sp.in_features, out_features=sp.out_features,
@@ -832,7 +862,8 @@ def run_mlp_train(seed, per_kernel, launches):
          step_ms=step_ms, forward_ms=forward_ms, backward_ms=backward_ms,
          step_enqueue_ms=step_enqueue_ms, step_runs_ms=[r[0] for r in runs],
          parts_ms=parts, flops=flops, achieved_TFLOPs=flops / step_ms / 1e9,
-         bound_ms=b_ms, bound_by=b_by,
+         bound_ms=b_ms, bound_by=b_by, bound_rate="3xTF32, 165 TFLOP/s",
+         cuda_core_floor_ms=f32_floor_ms,
          dense_step_ms=dense_ms, dense="torch.matmul, dense masked float32 weights, "
          "4x the flops; tf32_off: allow_tf32 False, tf32_on: allow_tf32 True",
          err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal,

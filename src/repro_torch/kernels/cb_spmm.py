@@ -7,9 +7,12 @@ by the X block ``Xb[bcol[i, g]]`` and yields one ``(B, N)`` partial;
 
 ``super_tile_spmm`` replaces the TPU kernel of the same name in the JAX
 package (``src/repro/kernels/cb_spmm.py``). On CUDA tensors it launches
-``csrc/cb_spmm.cu`` (a float32 FMA kernel, no tensor cores; see the note
-at the top of that file) or raises; on CPU tensors it takes
-``super_tile_spmm_plain``, the same arithmetic in plain PyTorch. Both read
+``csrc/cb_spmm.cu`` or raises: for B > 32 a tensor-core kernel whose
+products are 3xTF32 (each operand split into two TF32 halves, three
+``mma.sync`` products summed in float32, float32-grade error), for
+B <= 32 a float32 FMA kernel with one warp per slot; the note at the top
+of that file has the design. On CPU tensors it takes
+``super_tile_spmm_plain``, the same function in plain PyTorch. Both read
 the tiles in their stored dtype (float32, bfloat16, float64) and X as
 float32 or bfloat16, and accumulate and emit float32. Unlike the Pallas
 kernel, N needs no padding to a 128-lane multiple: the kernel masks the
@@ -24,7 +27,7 @@ from repro_torch import errors
 from . import _build
 
 X_DTYPES = (torch.float32, torch.bfloat16)
-MAX_BLOCK = 128   # rows the kernel's thread layout covers (csrc/cb_spmm.cu)
+MAX_BLOCK = 128   # rows the tensor-core kernel's tile covers (csrc/cb_spmm.cu)
 
 
 def super_tile_spmm_plain(tiles: torch.Tensor, bcol: torch.Tensor,
