@@ -18,7 +18,11 @@ the ``nvidia-smi`` line):
    {1, 16, 20, 33, 100, 129, 512} (B > 32: G in {1, 2}, N in {1, 20, 100,
    127, 128, 129, 512, 1025, 2049}), and X a view one element past an aligned
    base; an all-padding group;
-   the combine at SpMM's wide rows (R = B*N) with a ragged last block row;
+   the combine over the row-length profiles it meets (block row 0 with
+   35,000 slots, rows at exactly one and two chunks, a row longer than a
+   chunk squared, the solver's short rows, an inf slot) at R in {8, 16, 24}
+   and SpMM's wide rows (R = B*N up to 524288), the last block row ragged,
+   parts and y also one float past an aligned base, two runs bit-equal;
    random data within a tolerance and integer data bit for bit.
 4. ``spmv``, one line per matrix — the main path through the entry points a
    user calls: triplets from the port's seeded generators ->
@@ -45,11 +49,13 @@ the ``nvidia-smi`` line):
 7. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, one training step, summed;
    ``launches_per_call`` has them apart, keyed by the counted run), worst error seen,
-   time, plain version's time, the bound (the least time the card could
+   time (and the host's time to enqueue one call, ``enqueue_ms``: where it
+   is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over the rate of the
    arithmetic the kernel runs — 67 TFLOP/s float32, or 165 TFLOP/s for
-   the spmm kernel's 3xTF32 tensor-core products at B > 32), and a library
-   call's time where one computes the same function.
+   the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
+   bytes are those of any deterministic combine, ``combine_bytes``), and a
+   library call's time where one computes the same function.
 8. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
@@ -200,6 +206,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def combine_bytes(parts: torch.Tensor, y_len: int) -> int:
+    """What any deterministic combine must move, whatever its plan: the
+    partials read once, one int32 of permutation per slot, y read and written
+    once."""
+    return nbytes(parts) + 4 * parts.shape[0] + 2 * 4 * y_len
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, where: str, exact=False):
     """Hold a kernel's output against its plain version's; record the error."""
     torch.cuda.synchronize()
@@ -311,16 +324,84 @@ def edge_grid(seed: int) -> int:
                                                z((2, 24), device=DEV),
                                                payload((2, 24), torch.float32, False), B)],
                 "all-padding", exact=True)
-        # combine: short rows, one very long row (several levels), a ragged last row
-        for T, mb, m in ((1, 1, B), (500, 40, 40 * B - 3), (70000, 300, 300 * B - 1)):
-            for integer in (False, True):
-                brow = torch.randint(0, mb, (T,), generator=gen).to(torch.int32)
-                brow[: T // 2] = 0
-                brow = brow.to(DEV)
-                k, p = combine_pair(m, payload((T, B), torch.float32, integer), brow, B)
-                compare("combine", k(), p(), f"B={B} T={T} mb={mb}", exact=integer)
-                cases += 1
-    return cases + spmm_edge_grid(gen, payload)
+    return cases + combine_edge_grid(gen, payload) + spmm_edge_grid(gen, payload)
+
+
+def at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``off`` floats past an aligned base."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:].copy_(t.reshape(-1))
+    return buf[off:].view(t.shape)
+
+
+def combine_case(gen, payload, R, lengths, tag, off=0, inf_row=None, chunk=None) -> int:
+    """The combine at row width R over block rows of these slot counts (slots
+    shuffled, last block row ragged, y not zero): random data within
+    KERNEL_TOL and integer data bit-equal to the plain version, two runs
+    bit-equal; ``off`` puts parts and y one float past an aligned base;
+    ``inf_row`` puts an inf in one slot of that row, which must reach that
+    row's element and no other; ``chunk``, the chunk length the plan must have."""
+    counts = torch.tensor(lengths)
+    brow = torch.repeat_interleave(torch.arange(len(lengths)), counts)
+    brow = brow[torch.randperm(len(brow), generator=gen)].to(torch.int32).to(DEV)
+    plan = cb_combine.plan_combine(brow, DEV)
+    T, m = brow.numel(), len(lengths) * R - min(5, R - 1)
+    where = f"{tag} R={R} T={T} offset={off}"
+    if len(plan.passes) != 1 + bool(max(lengths) > plan.chunk) or (chunk and plan.chunk != chunk):
+        fail(f"combine at {where}: {len(plan.passes)} passes for rows of at most "
+             f"{max(lengths)} slots in chunks of {plan.chunk} (meant {chunk})")
+    for integer in (False, True):
+        parts = at_offset(payload((T, R), torch.float32, integer), off)
+        y0 = payload((m,), torch.float32, integer)
+        if inf_row is not None and not integer:
+            slot = int(torch.nonzero(brow == inf_row)[0])
+            parts[slot, R // 2] = float("inf")
+        runs = [cb_combine.segment_combine(at_offset(y0, off), parts, brow, R, plan)
+                for _ in range(2)]
+        want = cb_combine.combine_plain(y0.clone(), parts, brow, R)
+        if not torch.equal(runs[0], runs[1]):
+            fail(f"combine at {where}: two runs are not bit-equal")
+        if inf_row is not None and not integer:
+            at = inf_row * R + R // 2
+            bad = ~torch.isfinite(runs[0])
+            if not (bad[at] and int(bad.sum()) == 1 and torch.equal(bad, ~torch.isfinite(want))):
+                fail(f"combine at {where}: the inf of row {inf_row} did not land there alone")
+            runs[0][at], want[at] = 0.0, 0.0
+        compare("combine", runs[0], want, where, exact=integer)
+    return 2
+
+
+def combine_edge_grid(gen, payload) -> int:
+    """The combine over the row-length profiles it meets and their edges:
+    block row 0 with 35,000 slots (the packer's padding) beside a spread of
+    rows, one row longer than a chunk squared, rows at exactly one and two
+    chunks and one slot either side, the solver's short rows, one slot, an inf
+    slot in a long row and in a short one; R in {8, 16, 24, 256, 3048 (B = 24,
+    N = 127), 3096, 65536, 524288 (the MLP's 128 x 4096)}; parts and y at a
+    4-byte offset."""
+    c = cb_combine.chunk_length(cb_combine.MAX_POSITIONS, 0)  # the chunk at these slot counts
+    spread = torch.randint(1, 600, (299,), generator=gen).tolist()
+    cases = 0
+    for R in (8, 16, 24):
+        cases += combine_case(gen, payload, R, [1], "one slot")
+        cases += combine_case(gen, payload, R, [250] + [6] * 39, "row 0 of 250")
+        for off in (0, 1):
+            cases += combine_case(gen, payload, R, [35000] + spread, "row 0 of 35,000", off)
+            cases += combine_case(gen, payload, R, [c - 1, c, c + 1, 2 * c, 2 * c + 1, 3 * c],
+                                  "chunk edges", off, chunk=c)
+            cases += combine_case(gen, payload, R, [3] * 2000 + [40], "short rows", off)
+    cases += combine_case(gen, payload, 16, [c * c + 1] + [5] * 20, "a row over chunk squared")
+    cases += combine_case(gen, payload, 16, [35000] + spread, "inf in row 0", inf_row=0)
+    cases += combine_case(gen, payload, 16, [35000] + spread, "inf in a short row", inf_row=7)
+    for R, lengths in ((256, [3] * 5000 + [3000]), (256, [1700] + [11] * 299),
+                       (3048, [3] * 300 + [70]), (24 * 129, [230] + [12] * 39),
+                       (128 * 512, [100] + [33] * 6)):
+        for off in (0, 1):
+            cases += combine_case(gen, payload, R, lengths, "wide rows", off)
+    cases += combine_case(gen, payload, 256, [3] * 500 + [8], "inf in a wide row", inf_row=9)
+    cases += combine_case(gen, payload, 128 * 4096, [8] * 6 + [40], "the MLP's width", 1)
+    cases += combine_case(gen, payload, 128 * 4096, [8] * 6 + [40], "the MLP's width")
+    return cases
 
 
 SPMM_DTYPES = [(t, x) for t in (torch.float32, torch.bfloat16, torch.float64)
@@ -362,15 +443,6 @@ def spmm_edge_grid(gen, payload) -> int:
             Xb = payload((29 * B * N + 1,), torch.float32, integer)[1:].view(29, B, N)
             k, p = spmm_pair(payload((13, G * B, B), torch.float32, integer), bcol, Xb)
             compare("spmm", k(), p(), f"B={B} G={G} N={N} X at a 4-byte offset", exact=integer)
-            cases += 1
-    # the combine at SpMM's row width R = B*N, last block row ragged
-    for B, N, T, mb in ((16, 16, 5000, 300), (24, 129, 700, 40), (128, 512, 300, 7)):
-        R, m = B * N, mb * B - 5
-        for integer in (False, True):
-            brow = torch.randint(0, mb, (T,), generator=gen).to(torch.int32)
-            brow[: T // 3] = 0
-            k, p = combine_pair(m * N, payload((T, R), torch.float32, integer), brow.to(DEV), R)
-            compare("combine", k(), p(), f"R={B}*{N} T={T} mb={mb}", exact=integer)
             cases += 1
     return cases
 
@@ -430,6 +502,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     for k, groups in present.items():
         if groups and counted[k] < 1:
             fail(f"{name}: kernel {k} has work but was not launched by cb_spmv")
+    if counted["combine"] > 2:
+        fail(f"{name}: the combine took {counted['combine']} launches, at most 2 by design")
     if y.shape != (shape[0],) or y.dtype != torch.float32 or not torch.isfinite(y).all():
         fail(f"{name}: y has shape {tuple(y.shape)} dtype {y.dtype} or is not finite")
     if not torch.equal(y, y_again):
@@ -480,7 +554,11 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     brow64 = prep.brow.long()
     kc, pc = combine_pair(shape[0], parts, prep.brow, B, prep.combine)
     want = pc()
-    compare("combine", kc(), want, f"{name} T={parts.shape[0]}")
+    got = kc()
+    compare("combine", got, want, f"{name} T={parts.shape[0]}")
+    if not torch.equal(got, kc()):
+        fail(f"{name}: two runs of the combine are not bit-equal")
+    del got
     y2d = torch.empty((s.mb, B), dtype=torch.float32, device=DEV)
 
     def combine_library(y):
@@ -491,10 +569,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     compare("combine library", combine_library(torch.zeros_like(want)), want, name)
     del want
     y_acc = torch.zeros(shape[0], dtype=torch.float32, device=DEV)
-    plan_bytes = sum(nbytes(*(t for t in (lv.perm, lv.ptr, lv.rows) if t is not None))
-                     for lv in prep.combine.levels)
     pairs["combine"] = (combine_pair(shape[0], parts, prep.brow, B, prep.combine, y=y_acc),
-                        nbytes(parts) + plan_bytes + 2 * shape[0] * 4,
+                        combine_bytes(parts, shape[0]),
                         parts.numel(), tuple(parts.shape),
                         (lambda: combine_library(y_acc), "index_add_"))
     rows_out = {}
@@ -502,8 +578,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
         b_ms, b_by = bound(nb, fl)
         rows_out[k] = dict(
             matrix=name, run=name, shape=shp, bytes=nb, flops=fl, launches=counted[k],
-            ms=time_ms(kern), plain_ms=time_ms(plain, max(3, REPS // 4)),
-            bound_ms=b_ms, bound_by=b_by,
+            ms=time_ms(kern), enqueue_ms=enqueue_ms(kern),
+            plain_ms=time_ms(plain, max(3, REPS // 4)), bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib[0] is None else time_ms(lib[0]), library=lib[1])
         per_kernel[k].append(rows_out[k])
     del pairs, parts, y2d, y_acc, brow64
@@ -526,7 +602,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
          blocks_dense=stats["fmt_dense"], column_aggregated=stats["column_aggregated"],
          group_size=s.group_size, groups=ops.spmv_launch_stats(s)["steps"],
          padded_elements=s.padded_work(), slots=int(prep.brow.numel()),
-         combine_levels=len(prep.combine.levels),
+         combine_passes=len(prep.combine.passes), combine_chunk=prep.combine.chunk,
+         combine_positions=[p.positions for p in prep.combine.passes],
          host_seconds=dict(generate=t_gen, from_coo=t_cb, build_super_streams=t_streams,
                            to_device=t_to, first_call=t_first),
          stream_bytes=sum(region.values()) - region["x"] - region["y"],
@@ -551,8 +628,8 @@ def kernel_row(path, run, shape, nb, fl, launched, kern, plain, lib, lib_name,
     ``launched`` is the kernel's launch count in the counted ``run``."""
     b_ms, b_by = bound(nb, fl, flops_per_s)
     return dict(matrix=path, run=run, shape=shape, bytes=nb, flops=fl, launches=launched,
-                ms=time_ms(kern), plain_ms=time_ms(plain, max(3, REPS // 4)),
-                bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(kern), enqueue_ms=enqueue_ms(kern),
+                plain_ms=time_ms(plain, max(3, REPS // 4)), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None if lib is None else time_ms(lib), library=lib_name)
 
 
@@ -577,8 +654,11 @@ def spmm_rows(path, run, tiles, bcol, Xb, route, m, launched, per_kernel):
     parts = got.view(T, B * N)
     kc, pc = combine_pair(m * N, parts, route.brow, B * N, route.combine)
     want = pc()
-    compare("combine", kc(), want, f"{path} R={B}*{N}")
-    del want
+    got = kc()
+    compare("combine", got, want, f"{path} R={B}*{N}")
+    if not torch.equal(got, kc()):
+        fail(f"{path}: two runs of the combine are not bit-equal")
+    del want, got
     y2d = torch.empty((-(-m // B), B * N), dtype=torch.float32, device=DEV)
     brow64 = route.brow.long()
 
@@ -589,14 +669,12 @@ def spmm_rows(path, run, tiles, bcol, Xb, route, m, launched, per_kernel):
     compare("combine library", combine_library(torch.zeros(m * N, device=DEV)), pc(), path)
     y_acc = torch.zeros(m * N, dtype=torch.float32, device=DEV)
     kc, pc = combine_pair(m * N, parts, route.brow, B * N, route.combine, y=y_acc)
-    plan_bytes = sum(nbytes(*(t for t in (lv.perm, lv.ptr, lv.rows) if t is not None))
-                     for lv in route.combine.levels)
     out = {
         "spmm": kernel_row(path, run, tuple(tiles.shape) + (N,),
                            nbytes(tiles, bcol, Xb) + T * B * N * 4, 2 * T * B * B * N,
                            launched["spmm"], kern, plain, library, "torch.bmm (X pre-gathered)",
                            spmm_flops_per_s(B)),
-        "combine": kernel_row(path, run, tuple(parts.shape), nbytes(parts) + plan_bytes + 2 * m * N * 4,
+        "combine": kernel_row(path, run, tuple(parts.shape), combine_bytes(parts, m * N),
                               parts.numel(), launched["combine"], kc, pc,
                               lambda: combine_library(y_acc), "index_add_"),
     }
@@ -747,7 +825,7 @@ def run_mlp_train(seed, per_kernel, launches):
     torch.cuda.synchronize()
     bit_equal = {"y": torch.equal(y, y2), "dX": torch.equal(dx, dx2),
                  "d_tiles": all(torch.equal(grads[k], layers[k].tiles.grad) for k in layers)}
-    if not (bit_equal["y"] and bit_equal["dX"]):
+    if not all(bit_equal.values()):
         fail(f"mlp_train: two steps from the same state differ: {bit_equal}")
     del y2, dx2
     if not all(torch.isfinite(t).all() for t in (y, dx, *grads.values())):
@@ -866,9 +944,7 @@ def run_mlp_train(seed, per_kernel, launches):
          cuda_core_floor_ms=f32_floor_ms,
          dense_step_ms=dense_ms, dense="torch.matmul, dense masked float32 weights, "
          "4x the flops; tf32_off: allow_tf32 False, tf32_on: allow_tf32 True",
-         err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal,
-         d_tiles_note=None if bit_equal["d_tiles"] else
-         "dW is cuBLAS bmm, whose algorithm choice may differ between calls")
+         err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal)
 
 
 def main() -> None:

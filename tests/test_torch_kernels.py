@@ -171,29 +171,40 @@ def test_ref_accumulates_float64_payloads_in_float64():
 
 @pytest.mark.parametrize("T,mb,B", [(1, 1, 8), (50, 7, 16), (5000, 40, 24), (20000, 3, 16)])
 def test_combine_plan_fixes_a_complete_order(T, mb, B):
-    """Walk the plan on the host exactly as the kernel does: every slot is
-    summed once, chunks never exceed CHUNK, every row ends as one chunk."""
+    """Walk the plan on the host as the kernel does: every slot is summed
+    once, chunks never exceed the plan's chunk, a row of one chunk goes to y
+    in the first pass, a longer row's chunk sums through the second.
+    (``tests/test_torch_combine.py`` repeats the kernel's exact order.)"""
     rng = np.random.default_rng(T)
     brow = rng.integers(0, mb, T).astype(np.int32)
-    brow[: T // 2] = 0                       # one very long row: several levels
+    brow[: T // 2] = 0                       # one very long row: two passes
     parts = rng.integers(-5, 5, (T, B)).astype(np.float32)
     plan = t_combine.plan_combine(torch.from_numpy(brow), "cpu")
-    assert plan.num_slots == T
+    assert plan.num_slots == T and 1 <= len(plan.passes) <= 2
     src, y = parts, np.zeros(mb * B, np.float32)
-    for level in plan.levels:
-        ptr = level.ptr.numpy()
-        assert (np.diff(ptr) > 0).all() and (np.diff(ptr) <= t_combine.CHUNK).all()
-        assert ptr[0] == 0 and ptr[-1] == len(src) and len(ptr) == level.nchunks + 1
-        order = np.arange(len(src)) if level.perm is None else level.perm.numpy()
+    scratch = np.full((plan.num_scratch, B), np.nan, np.float32)
+    for i, p in enumerate(plan.passes):
+        bounds, dst = p.bounds.numpy(), p.dst.numpy()
+        assert len(bounds) == len(dst) == p.nchunks
+        order = np.arange(len(src)) if p.perm is None else p.perm.numpy()
         assert sorted(order.tolist()) == list(range(len(src)))
-        out = np.stack([src[order[ptr[c]:ptr[c + 1]]].sum(0) for c in range(level.nchunks)])
-        if level.rows is not None:
-            rows = level.rows.numpy()
-            assert len(np.unique(rows)) == len(rows)
-            y.reshape(mb, B)[rows] += out
-        src = out
-    assert plan.levels[-1].rows is not None
-    assert all(lv.rows is None for lv in plan.levels[:-1])
+        assert sorted(np.concatenate([np.arange(lo, hi) for lo, hi in bounds]).tolist()) == \
+            list(range(len(src)))
+        if i == 0:
+            assert (np.diff(bounds, axis=1) <= plan.chunk).all()
+        else:
+            assert (dst >= 0).all()
+        for (lo, hi), d in zip(bounds, dst):
+            out = src[order[lo:hi]].sum(0)
+            if d >= 0:
+                y.reshape(mb, B)[d] += out
+            else:
+                scratch[-1 - d] = out
+        src = scratch
+    direct = np.concatenate([p.dst.numpy() for p in plan.passes])
+    direct = direct[direct >= 0]
+    assert len(np.unique(direct)) == len(direct) == len(np.unique(brow))
+    assert len(plan.passes) == 1 + bool(np.bincount(brow).max() > plan.chunk)
     want = torch.zeros(mb * B)
     t_combine.combine_plain(want, torch.from_numpy(parts), torch.from_numpy(brow), B)
     np.testing.assert_array_equal(y, want.numpy())
