@@ -40,15 +40,40 @@ the ``nvidia-smi`` line):
    float32 right-hand sides, held against scipy's float64 CSR product, against
    ``impl="reference"``, and against itself (bit-equal); ``torch.sparse`` CSR
    ``A @ X`` is the yardstick.
-6. ``mlp_train`` — one training step of the cb-paper MLP at full width
+6. ``solve``, one line per run — the solver subsystem (``repro_torch.solvers``)
+   on the kernels above, every operator built by ``CBLinearOperator.from_cb``
+   on its default device (CUDA), float32, B = 16, default thresholds and
+   group size: ``cg`` (block-Jacobi, tol 1e-6) on ``spd_banded(2097152,
+   bandwidth=9)`` built with ``rmatvec`` and ``matmat``, held converged, at a
+   float64 residual of at most ``RESIDUAL_TOL`` (scipy CSR), within 2
+   iterations of ``impl="reference"`` on the card, bit-equal over two runs,
+   with scipy's float64 CG count beside it, and ``rmatvec`` against scipy's
+   float64 ``A.T @ y``; ``power`` (500 iterations) and ``chebyshev`` (16
+   columns through ``matmat``, degree 8, 5 rounds, the interval from the
+   host's Gershgorin bounds) on the same matrix, held against
+   ``impl="reference"``; ``bicgstab``, ``gmres`` (restart 20) and ``robust``
+   (``robust_solve``, its attempt ladder printed) on ``banded(2097152,
+   bandwidth=7, fill=0.8) + 8 I``, held converged at the float64 residual;
+   ``pagerank`` on the edges of ``power_law(262144, 262144, avg_deg=8)``
+   held against scipy's float64 damped power iteration (L1), then
+   ``EvolvingPageRank`` over three seeded weight steps, each step's streams
+   and result bit-equal to a fresh build's. Each line: ``iterations``,
+   ``solve_ms`` (CUDA events around the whole solve, warm, median of 3),
+   ``iter_ms``, ``iter_enqueue_ms`` (the host's time to enqueue one
+   iteration), ``spmv_ms`` of one ``cb_spmv`` on the same operator,
+   ``host_syncs`` (reads of the loop's stop flag) and ``library_iter_ms`` (the
+   same solver over ``torch.sparse`` CSR products, a yardstick). The launch
+   counters are zeroed before and read after one counted run of each.
+7. ``mlp_train`` — one training step of the cb-paper MLP at full width
    (granite-8b's d_model 4096 and d_ff 14336, B = 128, keep 0.25, 4096
    tokens): three ``CBSparseLinear`` layers, ``silu(gate(x)) * up(x)`` ->
    ``down``, mean squared error, ``backward()``, SGD. Held against the same
    step in float64 with dense masked weights, two steps bit-equal; the dense
    ``torch.matmul`` step (TF32 off and on) is the yardstick.
-7. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
-   on each matrix, one ``cb_spmm`` call, one training step, summed;
-   ``launches_per_call`` has them apart, keyed by the counted run), worst error seen,
+8. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+   on each matrix, one ``cb_spmm`` call, the counted solver runs, one training
+   step, summed; ``launches_per_call`` has them apart, keyed by the counted run,
+   the solver runs per iteration), worst error seen,
    time (and the host's time to enqueue one call, ``enqueue_ms``: where it
    is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over the rate of the
@@ -56,7 +81,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-8. the ``nvidia-smi`` name and power limit, then the verdict line.
+9. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -73,7 +98,9 @@ speaks of the full-size run.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -88,12 +115,15 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import CBMatrix, dense_oracle  # noqa: E402
 from repro_torch.core.streams import (  # noqa: E402
-    build_super_streams, build_super_tile_stream, tile_stream_from_cb,
+    _STREAM_FIELDS as STREAM_FIELDS, build_super_streams, build_super_tile_stream,
+    tile_stream_from_cb,
 )
 from repro_torch.data import matrices  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, cb_block_dense, cb_colagg, cb_combine, cb_coo, cb_spmm, ops,
 )
+from repro_torch import solvers  # noqa: E402
+from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
@@ -116,6 +146,15 @@ TRAIN_TOL = 1e-4               # MLP step vs float64 dense: y, dX and d_tiles ea
                                # f32 sums of 1024 (forward, dX) or 4096 (dW) products
                                # carry ~1e-6 of that; 1e-4 leaves room for the three
                                # chained products and the silu between them
+# the solve phase's matrices (fixed; PERF.md section 4 says why these sizes)
+SOLVE = dict(spd=2_097_152, nonsym=2_097_152, graph=262_144)
+RESIDUAL_TOL = 2e-6            # ||b - A x|| / ||b|| in float64 after a solve to tol 1e-6:
+                               # the float32 residual the solver stops on, plus the float32
+                               # rounding of A x (~3e-7 of ||b|| at these matrices)
+EIG_TOL = 1e-5                 # power iteration's eigenvalue vs impl="reference", relative
+RITZ_TOL = 1e-4                # Chebyshev Ritz values vs impl="reference", relative
+PAGERANK_L1 = 1e-5             # PageRank vs scipy float64: the port stops on an L1 step of
+                               # 1e-7, which leaves ~0.85 / 0.15 * 1e-7 = 6e-7 to the limit
 
 
 def emit(tag: str, **fields) -> None:
@@ -947,6 +986,462 @@ def run_mlp_train(seed, per_kernel, launches):
          err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal)
 
 
+# ---------------------------------------------------------------------------
+# the solve phase: the solvers of repro_torch.solvers on the kernels above
+# ---------------------------------------------------------------------------
+
+class LibraryOperator:
+    """The yardstick operator: ``torch.sparse`` CSR products in place of the CB
+    kernels, duck-typed so the port's solvers run over it unchanged."""
+
+    def __init__(self, rows, cols, vals, shape):
+        m, n = shape
+        crow = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=m))])
+        order = np.lexsort((cols, rows))
+        self.A = torch.sparse_csr_tensor(
+            torch.from_numpy(crow).to(DEV), torch.from_numpy(cols[order]).to(DEV),
+            torch.from_numpy(vals[order].astype(np.float32)).to(DEV), size=shape)
+        self.shape, self.device = shape, DEV
+
+    def matvec(self, v, impl=None):
+        return self.A @ v
+
+    def matvec_into(self, y, v, impl=None):
+        return y.add_(self.A @ v)
+
+    def matmat(self, X, impl=None, group_size=None):
+        return self.A @ X
+
+
+def counted_run(tag, fn, present):
+    """``fn()`` with every launch counter and host-sync counter zeroed just
+    before and read just after; fails if a kernel in ``present`` (the
+    kernels the operator's streams give work) was not launched."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    solver_loop.HOST_SYNCS.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    syncs = sum(solver_loop.HOST_SYNCS.values())
+    for k in present:
+        if counted[k] < 1:
+            fail(f"solve {tag}: kernel {k} has work but was not launched")
+    return out, counted, syncs
+
+
+def present_kernels(s) -> list[str]:
+    """The kernels one ``cb_spmv`` on stream ``s`` launches."""
+    return [k for k, g in (("dense", s.num_dense_groups), ("panel", s.num_panel_groups),
+                           ("coo", s.num_coo_groups), ("combine", 1)) if g]
+
+
+def solve_ms(fn) -> float:
+    """Device time of one whole solve: CUDA events around it, warm, median of 3."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b))
+    return statistics.median(runs)
+
+
+def graph_ms(fn) -> float:
+    """Device time of one ``fn()`` with no host in the way: captured in a CUDA
+    graph (after one warm call on a side stream), replayed between CUDA events;
+    median of 3."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return solve_ms(graph.replay)
+
+
+def per_iteration(run_n, capture: bool) -> dict:
+    """One loop iteration's host enqueue time and, where the loop can be
+    captured, its device time. ``run_n(it)`` runs the solver with
+    ``maxiter=it`` and ``tol=0`` (so it does not stop early); runs of 1 and of
+    ``SYNC_EVERY`` iterations read no stop flag (GMRES reads after each cycle
+    and its SVD waits for the device, so its figure is a cycle's host time,
+    waits included), and their difference is ``SYNC_EVERY - 1`` iterations: the host clock
+    around each call enqueued directly (median of 3), and the device time of
+    each captured in a CUDA graph and replayed (``capture``; a CUDA graph over
+    the iteration would run at this time)."""
+    n = solver_loop.SYNC_EVERY
+
+    def host_ms(it):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_n(it)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(runs)
+
+    if n < 2:
+        fail("per_iteration needs SYNC_EVERY >= 2: runs of 1 and SYNC_EVERY iterations")
+    return dict(iter_enqueue_ms=(host_ms(n) - host_ms(1)) / (n - 1),
+                device_iter_ms=((graph_ms(lambda: run_n(n)) - graph_ms(lambda: run_n(1)))
+                                / (n - 1)) if capture else None)
+
+
+def residual64(A64, x, b) -> float:
+    """||b - A x|| / ||b|| in float64 (scipy CSR)."""
+    x64 = x.double().cpu().numpy()
+    return float(np.linalg.norm(b.astype(np.float64) - A64 @ x64) / np.linalg.norm(b))
+
+
+def scipy_iters(kind, A64, b, M=None, tol=1e-6, maxiter=500) -> int:
+    """scipy's float64 iteration count on the same system and stop rule
+    (negative where scipy did not converge within ``maxiter``)."""
+    fn = {"cg": scipy.sparse.linalg.cg, "bicgstab": scipy.sparse.linalg.bicgstab}[kind]
+    key = "rtol" if "rtol" in inspect.signature(fn).parameters else "tol"
+    count = [0]
+    _, info = fn(A64, b.astype(np.float64), atol=0.0, maxiter=maxiter, M=M,
+                 callback=lambda *_: count.__setitem__(0, count[0] + 1), **{key: tol})
+    return count[0] if info == 0 else -count[0]
+
+
+def emit_solve(run, res_iters, counted, syncs, fn, run_n, capture, lib_fn, lib_iters, spmv,
+               extra, solver_launches, launches):
+    """Time a solver run and print its ``solve`` line: ``fn`` runs it on the
+    port, ``run_n(it)`` with ``maxiter=it`` (see ``per_iteration``), ``lib_fn``
+    over the library operator; ``res_iters`` and ``counted`` are the counted
+    run's iterations and launches. ``host_share`` is the part of an iteration
+    the device is not busy: 1 - device_iter_ms / iter_ms."""
+    s_ms = solve_ms(fn)
+    lib_ms = solve_ms(lib_fn)
+    it = per_iteration(run_n, capture)
+    iter_ms = s_ms / max(res_iters, 1)
+    line = dict(run=run, iterations=res_iters, solve_ms=s_ms, iter_ms=iter_ms, **it,
+                host_share=None if it["device_iter_ms"] is None
+                else 1.0 - it["device_iter_ms"] / iter_ms,
+                spmv_ms=time_ms(spmv), host_syncs=syncs, sync_every=solver_loop.SYNC_EVERY,
+                library_iter_ms=lib_ms / max(lib_iters, 1), library_iterations=lib_iters,
+                library="the same solver over torch.sparse CSR A @ x",
+                launches=counted,
+                launches_per_iteration={k: v / max(res_iters, 1) for k, v in counted.items()})
+    line.update(extra)
+    emit("solve", **line)
+    for k, c in counted.items():
+        launches[k] += c
+        if c:
+            solver_launches.setdefault(k, {})[f"solve {run} (per iteration)"] = \
+                c / max(res_iters, 1)
+
+
+def gershgorin(rows, cols, vals, n) -> tuple[float, float]:
+    """The host's Gershgorin interval [min_i a_ii - R_i, max_i a_ii + R_i]."""
+    v = vals.astype(np.float64)
+    on = rows == cols
+    diag = np.bincount(rows[on], weights=v[on], minlength=n)
+    radius = np.bincount(rows[~on], weights=np.abs(v[~on]), minlength=n)
+    return float((diag - radius).min()), float((diag + radius).max())
+
+
+def run_solve(seed, launches, solver_launches):
+    B = 16
+    n = SOLVE["spd"]
+    # ---- cg, power, chebyshev: the SPD banded matrix -------------------------------
+    t0 = time.perf_counter()
+    rows, cols, vals = matrices.spd_banded(n, bandwidth=9, seed=seed + 3)
+    vals = vals.astype(np.float32)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cb = CBMatrix.from_coo(rows, cols, vals, (n, n), block_size=B, val_dtype=np.float32)
+    t_cb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = solvers.CBLinearOperator.from_cb(cb, with_rmatvec=True, with_matmat=True)
+    M = solvers.block_jacobi(cb)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    del cb
+    A64 = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=(n, n))
+    lib = LibraryOperator(rows, cols, vals, (n, n))
+    rng = np.random.default_rng(seed + 13)
+    b = rng.standard_normal(n).astype(np.float32)
+    b_dev = torch.from_numpy(b).to(DEV)
+    x_dev = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(DEV)
+    spd_present = present_kernels(op.streams)
+    cg_kw = dict(tol=1e-6, maxiter=500)
+
+    res, counted, syncs = counted_run("cg", lambda: solvers.cg(op, b_dev, M, **cg_kw),
+                                      spd_present)
+    iters = int(res.iterations)
+    again = solvers.cg(op, b_dev, M, **cg_kw)
+    ref = solvers.cg(op, b_dev, M, impl="reference", **cg_kw)
+    rel = residual64(A64, res.x, b)
+    inv = M.inv_blocks.double().cpu().numpy()
+    mb = inv.shape[0]
+
+    def bj64(r):
+        rp = np.zeros(mb * B)
+        rp[:n] = np.asarray(r).reshape(-1)
+        return np.einsum("brc,bc->br", inv, rp.reshape(mb, B)).reshape(-1)[:n]
+
+    scipy_cg = scipy_iters("cg", A64, b, scipy.sparse.linalg.LinearOperator((n, n), matvec=bj64))
+    if not bool(res.converged):
+        fail(f"solve cg: not converged ({res.reason}) after {iters} iterations")
+    if rel > RESIDUAL_TOL:
+        fail(f"solve cg: float64 residual {rel:.3e} > {RESIDUAL_TOL}")
+    if abs(iters - int(ref.iterations)) > 2:
+        fail(f"solve cg: {iters} iterations against impl='reference' {int(ref.iterations)}")
+    if not (torch.equal(res.x, again.x) and int(again.iterations) == iters):
+        fail("solve cg: two runs are not bit-equal")
+    # rmatvec through the transposed streams against scipy's float64 A^T y
+    yT = op.rmatvec(x_dev).double().cpu().numpy()
+    xr = x_dev.double().cpu().numpy()
+    errT = np.abs(yT - A64.T @ xr)
+    magT = abs(A64).T @ np.abs(xr)
+    rmatvec_rel = float((errT / np.maximum(magT, 1e-30)).max())
+    if not (errT <= ORACLE_TOL * magT + 1e-30).all():
+        fail(f"solve cg: rmatvec differs from scipy float64 A^T y by {rmatvec_rel:.3e}")
+    lib_res = solvers.cg(lib, b_dev, M, **cg_kw)
+    emit_solve("cg", iters, counted, syncs,
+               lambda: solvers.cg(op, b_dev, M, **cg_kw),
+               lambda it: solvers.cg(op, b_dev, M, tol=0.0, maxiter=it), True,
+               lambda: solvers.cg(lib, b_dev, M, **cg_kw), int(lib_res.iterations),
+               lambda: op.matvec(x_dev),
+               dict(matrix=f"spd_banded({n}, bandwidth=9)", nnz=int(op.nnz), block_size=B,
+                    group_size=op.group_size, preconditioner="block_jacobi", tol=1e-6,
+                    converged=True, status=res.reason, residual_f64_rel=rel,
+                    reference_iterations=int(ref.iterations), scipy_f64_iterations=scipy_cg,
+                    runs_bit_equal=True, rmatvec_err_vs_f64_rel=rmatvec_rel,
+                    host_seconds=dict(generate=t_gen, from_coo=t_cb,
+                                      operator_and_preconditioner=t_op)),
+               solver_launches, launches)
+    del res, again, ref, lib_res
+
+    # power iteration: the dominant eigenpair, held against the reference on the card
+    v0 = torch.from_numpy(np.random.default_rng(seed + 17).standard_normal(n)
+                          .astype(np.float32)).to(DEV)
+    pw, counted, syncs = counted_run("power", lambda: solvers.power_iteration(
+        op, v0, maxiter=500), spd_present)
+    pw_ref = solvers.power_iteration(op, v0, maxiter=500, impl="reference")
+    lam, lam_ref = float(pw.eigenvalue), float(pw_ref.eigenvalue)
+    if not (math.isfinite(lam) and abs(lam - lam_ref) <= EIG_TOL * abs(lam_ref)):
+        fail(f"solve power: eigenvalue {lam} against impl='reference' {lam_ref}")
+    wv = op.matvec(pw.eigenvector) - pw.eigenvalue * pw.eigenvector
+    lib_pw = solvers.power_iteration(lib, v0, maxiter=500)
+    emit_solve("power", int(pw.iterations), counted, syncs,
+               lambda: solvers.power_iteration(op, v0, maxiter=500),
+               lambda it: solvers.power_iteration(op, v0, tol=0.0, maxiter=it), True,
+               lambda: solvers.power_iteration(lib, v0, maxiter=500), int(lib_pw.iterations),
+               lambda: op.matvec(x_dev),
+               dict(matrix=f"spd_banded({n}, bandwidth=9)", maxiter=500,
+                    converged=bool(pw.converged), eigenvalue=lam, reference_eigenvalue=lam_ref,
+                    eigenvalue_rel_diff=abs(lam - lam_ref) / abs(lam_ref),
+                    residual_rel=float(torch.linalg.vector_norm(wv)) / abs(lam)),
+               solver_launches, launches)
+    del pw, pw_ref, lib_pw, wv
+
+    # Chebyshev subspace: 16 columns through matmat, the interval from Gershgorin
+    g_lo, g_hi = gershgorin(rows, cols, vals, n)
+    lb, ub = g_lo, g_lo + 0.5 * (g_hi - g_lo)
+    V0 = torch.from_numpy(np.random.default_rng(seed + 19).standard_normal((n, 16))
+                          .astype(np.float32)).to(DEV)
+    ch_kw = dict(lb=lb, ub=ub, degree=8, iters=5)
+    (vals_c, Q), counted, syncs = counted_run(
+        "chebyshev", lambda: solvers.chebyshev_subspace(op, V0, **ch_kw), ["spmm", "combine"])
+    vals_r, Q_r = solvers.chebyshev_subspace(op, V0, impl="reference", **ch_kw)
+    ritz_diff = float(((vals_c - vals_r).abs() / vals_r.abs()).max())
+    if not torch.isfinite(vals_c).all() or ritz_diff > RITZ_TOL:
+        fail(f"solve chebyshev: Ritz values differ from impl='reference' by {ritz_diff:.3e}")
+    subspace = torch.linalg.svdvals((Q_r.T.double() @ Q.double())).cpu().numpy()
+    ritz_res = (torch.linalg.vector_norm(op.matmat(Q) - Q * vals_c, dim=0)
+                / vals_c.abs()).cpu().numpy()
+    matmats = 8 * 5 + 1
+
+    def chebyshev_enqueue():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers.chebyshev_subspace(op, V0, **ch_kw)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / matmats * 1e3
+
+    c_ms, lib_ms = solve_ms(lambda: solvers.chebyshev_subspace(op, V0, **ch_kw)), \
+        solve_ms(lambda: solvers.chebyshev_subspace(lib, V0, **ch_kw))
+    emit("solve", run="chebyshev", matrix=f"spd_banded({n}, bandwidth=9)", columns=16,
+         degree=8, rounds=5, iterations=matmats, solve_ms=c_ms, iter_ms=c_ms / matmats,
+         iter_enqueue_ms=chebyshev_enqueue(), device_iter_ms=None, host_share=None,
+         spmv_ms=time_ms(lambda: op.matvec(x_dev)), spmm_ms=time_ms(lambda: op.matmat(V0)),
+         qr_ms=time_ms(lambda: torch.linalg.qr(V0), 3), host_syncs=syncs,
+         library_iter_ms=lib_ms / matmats, library="the same solver over torch.sparse CSR A @ X",
+         launches=counted, launches_per_iteration={k: v / matmats for k, v in counted.items()},
+         gershgorin=[g_lo, g_hi], lb=lb, ub=ub, ritz_values=vals_c.tolist(),
+         reference_ritz_values=vals_r.tolist(), ritz_rel_diff=ritz_diff,
+         ritz_residual_rel=ritz_res.tolist(),
+         subspace_singular_values_min=float(subspace.min()), tolerance=RITZ_TOL)
+    for k, c in counted.items():
+        launches[k] += c
+        if c:
+            solver_launches.setdefault(k, {})["solve chebyshev (per matmat)"] = c / matmats
+    del op, M, lib, A64, Q, Q_r, V0, vals_c, vals_r, b_dev, x_dev, rows, cols, vals
+    torch.cuda.empty_cache()
+
+    # ---- bicgstab, gmres, robust: the nonsymmetric banded matrix -------------------------
+    n = SOLVE["nonsym"]
+    rows, cols, vals = matrices.banded(n, n, bandwidth=7, fill=0.8, seed=seed + 5)
+    diag = np.arange(n)
+    rows, cols = np.concatenate([rows, diag]), np.concatenate([cols, diag])
+    vals = np.concatenate([vals, np.full(n, 8.0)]).astype(np.float32)
+    t0 = time.perf_counter()
+    cb = CBMatrix.from_coo(rows, cols, vals, (n, n), block_size=B, val_dtype=np.float32)
+    op = solvers.CBLinearOperator.from_cb(cb)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    del cb
+    A64 = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=(n, n))
+    lib = LibraryOperator(rows, cols, vals, (n, n))
+    rng = np.random.default_rng(seed + 23)
+    b = rng.standard_normal(n).astype(np.float32)
+    b_dev = torch.from_numpy(b).to(DEV)
+    x_dev = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(DEV)
+    present = present_kernels(op.streams)
+    matrix = f"banded({n}, {n}, bandwidth=7, fill=0.8) + 8 I"
+    for name, kw in (("bicgstab", dict(tol=1e-6, maxiter=500)),
+                     ("gmres", dict(tol=1e-6, restart=20, maxiter=50))):
+        solve = getattr(solvers, name)
+        res, counted, syncs = counted_run(name, lambda: solve(op, b_dev, **kw), present)
+        rel = residual64(A64, res.x, b)
+        if not bool(res.converged) or rel > RESIDUAL_TOL:
+            fail(f"solve {name}: converged {bool(res.converged)} ({res.reason}), "
+                 f"float64 residual {rel:.3e}")
+        ref = solve(op, b_dev, impl="reference", **kw)
+        lib_res = solve(lib, b_dev, **kw)
+        extra = dict(matrix=matrix, nnz=int(op.nnz), block_size=B, group_size=op.group_size,
+                     converged=True, status=res.reason, residual_f64_rel=rel,
+                     reference_iterations=int(ref.iterations), host_seconds=dict(
+                         from_coo_and_operator=t_op))
+        if name == "gmres":
+            extra.update(restart=20, iterations_are="restart cycles")
+        else:
+            extra["scipy_f64_iterations"] = scipy_iters("bicgstab", A64, b)
+        emit_solve(name, int(res.iterations), counted, syncs,
+                   lambda: solve(op, b_dev, **kw),
+                   lambda it: solve(op, b_dev, **dict(kw, tol=0.0, maxiter=it)), name != "gmres",
+                   lambda: solve(lib, b_dev, **kw), int(lib_res.iterations),
+                   lambda: op.matvec(x_dev), extra, solver_launches, launches)
+        del res, ref, lib_res
+
+    rob, counted, syncs = counted_run(
+        "robust", lambda: solvers.robust_solve(op, b_dev, tol=1e-6, maxiter=500), present)
+    rel = residual64(A64, rob.x, b)
+    if not rob.converged or rel > RESIDUAL_TOL:
+        fail(f"solve robust: converged {rob.converged} ({rob.reason}), float64 residual "
+             f"{rel:.3e}, attempts {rob.attempts}")
+    rob_iters = sum(a.iterations for a in rob.attempts)
+    lib_rob = solvers.robust_solve(lib, b_dev, tol=1e-6, maxiter=500)
+    win = getattr(solvers, rob.solver)
+    emit_solve("robust", rob_iters, counted, syncs,
+               lambda: solvers.robust_solve(op, b_dev, tol=1e-6, maxiter=500),
+               lambda it: win(op, b_dev, tol=0.0, maxiter=it), False,
+               lambda: solvers.robust_solve(lib, b_dev, tol=1e-6, maxiter=500),
+               sum(a.iterations for a in lib_rob.attempts), lambda: op.matvec(x_dev),
+               dict(matrix=matrix, converged=True, status=rob.reason, solver=rob.solver,
+                    residual_f64_rel=rel, iterations_are="summed over the attempts",
+                    iter_enqueue_ms_of=f"{rob.solver}, the deciding solver",
+                    attempts=[dict(solver=a.solver, status=a.reason, iterations=a.iterations,
+                                   residual=a.residual) for a in rob.attempts]),
+               solver_launches, launches)
+    del op, lib, A64, rob, lib_rob, b_dev, x_dev, rows, cols, vals
+    torch.cuda.empty_cache()
+
+    # ---- pagerank on the power-law graph, then the same graph with evolving weights -------
+    n = SOLVE["graph"]
+    src, dst, _ = matrices.power_law(n, n, avg_deg=8, seed=seed + 2)
+    t0 = time.perf_counter()
+    op, dangling = solvers.pagerank_operator(src, dst, n)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    pr_kw = dict(tol=1e-7, maxiter=200)
+    pr, counted, syncs = counted_run("pagerank", lambda: solvers.pagerank(op, dangling, **pr_kw),
+                                     present_kernels(op.streams))
+    p = pr.eigenvector.double().cpu().numpy()
+    key = np.unique(src.astype(np.int64) * n + dst.astype(np.int64))
+    s_u, d_u = key // n, key % n
+    outdeg = np.bincount(s_u, minlength=n).astype(np.float64)
+    P64 = scipy.sparse.csr_matrix((1.0 / outdeg[s_u], (d_u, s_u)), shape=(n, n))
+    dmask = outdeg == 0
+    x = np.full(n, 1.0 / n)
+    for _ in range(1000):                   # scipy float64 damped power iteration
+        xn = 0.85 * (P64 @ x + x[dmask].sum() / n) + 0.15 / n
+        xn /= xn.sum()
+        done = np.abs(xn - x).sum() < 1e-14
+        x = xn
+        if done:
+            break
+    l1 = float(np.abs(p - x).sum())
+    if not bool(pr.converged) or l1 > PAGERANK_L1 or abs(p.sum() - 1.0) > 1e-5:
+        fail(f"solve pagerank: converged {bool(pr.converged)}, L1 to scipy float64 {l1:.3e}, "
+             f"sum {p.sum()}")
+    lib = LibraryOperator(d_u, s_u, (1.0 / outdeg[s_u]).astype(np.float32), (n, n))
+    lib_pr = solvers.pagerank(lib, dangling, **pr_kw)
+    x_dev = torch.from_numpy(np.random.default_rng(seed + 29).standard_normal(n)
+                             .astype(np.float32)).to(DEV)
+
+    # EvolvingPageRank: one build, three weight steps, each against a fresh build
+    t0 = time.perf_counter()
+    ev = solvers.EvolvingPageRank.build(src, dst, n)
+    torch.cuda.synchronize()
+    t_ev = time.perf_counter() - t0
+    wrng = np.random.default_rng(seed + 31)
+    steps = []
+    for _ in range(3):
+        w = wrng.uniform(0.1, 2.0, len(src))
+        t0 = time.perf_counter()
+        canon = ev.canonical_values(w)
+        t_canon = time.perf_counter() - t0
+        canon_dev = torch.from_numpy(canon).to(DEV)
+        step_res = ev.step(w, **pr_kw)
+        upd_op = ev.op.with_values(canon_dev)
+        # the fresh build of the same weights
+        w_u = np.zeros(len(ev.edge_src))
+        np.add.at(w_u, ev.edge_map, w)
+        outsum = np.zeros(n)
+        np.add.at(outsum, ev.edge_src, w_u)
+        t0 = time.perf_counter()
+        fresh_cb = CBMatrix.from_coo(ev.edge_dst, ev.edge_src,
+                                     (w_u / outsum[ev.edge_src]).astype(np.float32), (n, n),
+                                     block_size=B, val_dtype=np.float32)
+        fresh = solvers.CBLinearOperator.from_cb(fresh_cb)
+        torch.cuda.synchronize()
+        t_fresh = time.perf_counter() - t0
+        same = all(torch.equal(getattr(upd_op.streams, f), getattr(fresh.streams, f))
+                   for f in STREAM_FIELDS)
+        fresh_res = solvers.pagerank(fresh, ev.dangling, **pr_kw)
+        if not same or not torch.equal(step_res.eigenvector, fresh_res.eigenvector):
+            fail(f"solve pagerank: evolving step {len(steps)}: streams bit-equal {same}, "
+                 f"result bit-equal {torch.equal(step_res.eigenvector, fresh_res.eigenvector)}")
+        steps.append(dict(iterations=int(step_res.iterations),
+                          update_ms=time_ms(lambda: ev.op.with_values(canon_dev)),
+                          canonical_values_s=t_canon, fresh_build_s=t_fresh,
+                          streams_bit_equal=True, result_bit_equal=True))
+        del upd_op, fresh, fresh_cb, step_res, fresh_res
+    emit_solve("pagerank", int(pr.iterations), counted, syncs,
+               lambda: solvers.pagerank(op, dangling, **pr_kw),
+               lambda it: solvers.pagerank(op, dangling, tol=0.0, maxiter=it), True,
+               lambda: solvers.pagerank(lib, dangling, **pr_kw), int(lib_pr.iterations),
+               lambda: op.matvec(x_dev),
+               dict(matrix=f"power_law({n}, {n}, avg_deg=8) edges, P^T", nnz=int(op.nnz),
+                    block_size=B, group_size=op.group_size, tol=1e-7, converged=True,
+                    l1_to_scipy_f64=l1, sum=float(p.sum()), tolerance=PAGERANK_L1,
+                    host_seconds=dict(pagerank_operator=t_op, evolving_build=t_ev),
+                    evolving_steps=steps),
+               solver_launches, launches)
+
+
 def main() -> None:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -980,6 +1475,9 @@ def main() -> None:
             run_matmat(call, cb, coo, args.seed, per_kernel, launches)
         del cb, coo
         torch.cuda.empty_cache()
+    solver_launches = {}                        # kernel -> {solve run: launches per iteration}
+    run_solve(args.seed, launches, solver_launches)
+    torch.cuda.empty_cache()
     run_mlp_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
 
@@ -995,7 +1493,8 @@ def main() -> None:
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"],
-            launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]},
+            launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]}
+            | solver_launches.get(k, {}),
             at=head["matrix"], shape=head["shape"],
             per_matrix=per_kernel[k]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -66,6 +66,20 @@ def _npz_checksum(entries: dict) -> str:
     return h.hexdigest()
 
 
+@dataclasses.dataclass(frozen=True)
+class ValueLayout:
+    """The once-per-structure value-scatter index (``value_layout``).
+
+    ``byte_pos[i]`` is the first byte of canonical element ``i``'s value
+    inside ``CBMatrix.packed``; ``keys[i]`` is its ``row * n + col`` key
+    in canonical ascending order.
+    """
+
+    count: int
+    byte_pos: np.ndarray   # (count,) int64
+    keys: np.ndarray       # (count,) int64
+
+
 @dataclasses.dataclass
 class CBMatrix:
     shape: tuple[int, int]
@@ -450,6 +464,128 @@ class CBMatrix:
         r_all, c_all, v_all = self.global_elements()
         order = np.lexsort((c_all, r_all))
         return r_all[order], c_all[order], v_all[order]
+
+    # ------------------------------------------------------------------
+    # Dynamic-sparsity fast path: rewrite values without re-planning.
+    #
+    # Every structural decision (blocking, colagg, format select, Alg. 2
+    # balance, byte layout) depends only on the sparsity pattern, so a
+    # matrix whose values churn can keep its entire CB structure and
+    # scatter fresh values straight into the packed buffer. The scatter
+    # index — one byte offset per canonical element — is recorded once
+    # per structure and reused for every update.
+    # ------------------------------------------------------------------
+
+    def value_layout(self) -> ValueLayout:
+        """The value-scatter index: canonical order -> packed byte offsets.
+
+        Decodes every format at once (``format_elements``), recording for
+        every *recoverable* element its global (row, col) key and the byte
+        offset of its value inside ``packed`` (the ``aggregation`` intra-block
+        layouts: a dense element sits at its tile cell, a COO/CSR element
+        at its index past the aligned head), then sorts by key into the
+        canonical (row, col) order ``to_coo`` emits. Keys are unique, so
+        the result is the JAX package's slot-by-slot walk, bit for bit.
+        Cached on the instance; ``update_values`` propagates the cache to
+        the copies it returns, so a churn loop pays the decode once.
+        """
+        layout = getattr(self, "_value_layout_cache", None)
+        if layout is not None:
+            return layout
+        B = self.block_size
+        vsize = self.val_dtype.itemsize
+        n = self.shape[1]
+        pos_l, key_l = [], []
+        for fmt in (formats.FMT_COO, formats.FMT_CSR, formats.FMT_DENSE):
+            slots, blk, r, c, _v = self.format_elements(fmt)
+            vp = self.vp_per_blk[slots].astype(np.int64)
+            r = r.astype(np.int64)
+            if fmt == formats.FMT_DENSE:
+                pos = vp[blk] + (r * B + c) * vsize
+            else:
+                nnz = self.nnz_per_blk[slots].astype(np.int64)
+                head, _ = aggregation._section_sizes(np.full(len(slots), fmt), nnz, B, vsize)
+                k = np.arange(len(blk), dtype=np.int64) - (np.cumsum(nnz) - nnz)[blk]
+                pos = vp[blk] + head[blk] + k * vsize
+            brow = self.blk_row_idx[slots].astype(np.int64)[blk]
+            bcol = self.blk_col_idx[slots].astype(np.int64)[blk]
+            pos_l.append(pos)
+            key_l.append((brow * B + r) * n + self.global_x_index(brow, bcol, c))
+        pos = np.concatenate(pos_l).astype(np.int64)
+        keys = np.concatenate(key_l).astype(np.int64)
+        order = np.argsort(keys, kind="stable")
+        layout = ValueLayout(count=len(pos), byte_pos=pos[order], keys=keys[order])
+        self._value_layout_cache = layout
+        return layout
+
+    def update_values(self, new_vals: np.ndarray, *,
+                      nonfinite: str = "raise") -> "CBMatrix":
+        """Rewrite the packed values in place of a full rebuild.
+
+        ``new_vals`` is one value per element in **canonical order** —
+        the (row, col)-sorted order ``to_coo`` returns (use
+        :meth:`update_from_coo` for arbitrary triplet order). Returns a
+        new ``CBMatrix`` sharing every metadata array (same blocking,
+        colagg, formats, balance, byte layout) with only the packed
+        buffer replaced — no re-planning, re-balancing, or re-selection
+        runs.
+
+        Writing an exact 0.0 into a dense-format slot makes that element
+        unrecoverable on the next ``to_coo`` (the format cannot
+        distinguish it from padding); keep update values nonzero when
+        round-trip fidelity matters.
+        """
+        layout = self.value_layout()
+        vals = np.ascontiguousarray(new_vals, self.val_dtype)
+        vals = _nonfinite_policy(vals, nonfinite, "CBMatrix.update_values")
+        if vals.shape != (layout.count,):
+            raise errors.InvalidArgError(
+                f"update_values expects {layout.count} canonical values "
+                f"(see to_coo), got array of shape {vals.shape}"
+            )
+        vsize = self.val_dtype.itemsize
+        packed = self.packed.copy()
+        idx = layout.byte_pos[:, None] + np.arange(vsize, dtype=np.int64)
+        packed[idx] = vals.view(np.uint8).reshape(-1, vsize)
+        new = dataclasses.replace(self, packed=packed)
+        # The scatter index is pattern-derived; hand it to the copy so
+        # chained updates never decode the blocks again.
+        new._value_layout_cache = layout
+        return new
+
+    def update_from_coo(
+        self,
+        rows: np.ndarray,
+        cols: np.ndarray,
+        vals: np.ndarray,
+        *,
+        nonfinite: str = "raise",
+    ) -> "CBMatrix":
+        """``update_values`` for triplets in arbitrary order.
+
+        Duplicates are merged by summation (matching ``from_coo``); the
+        resulting coordinate set must equal this matrix's structure
+        exactly — structure drift (new or missing coordinates) raises,
+        because only a full ``from_coo`` rebuild can re-plan the
+        blocking for a changed pattern.
+        """
+        layout = self.value_layout()
+        n = self.shape[1]
+        rows = np.ascontiguousarray(rows, np.int64)
+        cols = np.ascontiguousarray(cols, np.int64)
+        vals = np.ascontiguousarray(vals, self.val_dtype)
+        key = rows * n + cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        summed = np.zeros(len(uniq), self.val_dtype)
+        np.add.at(summed, inv, vals)
+        if len(uniq) != layout.count or not np.array_equal(uniq, layout.keys):
+            raise errors.StructureDriftError(errors.reason(
+                errors.STRUCTURE_DRIFT,
+                "sparsity pattern differs from this CBMatrix's structure; "
+                "update_from_coo only rewrites values — rebuild with "
+                "from_coo (and re-plan) for structure drift",
+            ))
+        return self.update_values(summed, nonfinite=nonfinite)
 
     def global_x_index(self, brow, bcol, local_c: np.ndarray) -> np.ndarray:
         """Map (block, local col) -> original global column of x.

@@ -57,8 +57,8 @@ from repro_torch import errors
 
 from . import balance as balance_mod
 from . import column_agg as column_agg_mod
-from .aggregation import coord_bits, typed_view
-from .blocking import partition_coo
+from .aggregation import aggregate_partition, coord_bits, typed_view
+from .blocking import BlockPartition, partition_coo
 from .cb_matrix import CBMatrix
 from .formats import FMT_COO, FMT_CSR, FMT_DENSE
 
@@ -681,6 +681,38 @@ def build_super_streams(
 
 
 # ---------------------------------------------------------------------------
+# Transposed streams: the solver subsystem's rmatvec path.
+# ---------------------------------------------------------------------------
+
+def transpose_cb(cb: CBMatrix) -> CBMatrix:
+    """Rebuild the full CB pipeline for ``A^T`` (host-side, plan time).
+
+    The transpose gets its *own* CB structure: the matrix's triplets in
+    original global coordinates (one whole-matrix decode,
+    ``global_elements``), swapped, sorted row-major in transposed
+    coordinates with one ``lexsort``, then the whole preprocessing
+    pipeline again — block formats, column aggregation and balance are
+    re-decided for A^T's structure. Coordinates are unique, so the sort
+    fixes the order completely and the result is bit-identical to the JAX
+    package's block-by-block collection, and to ``CBMatrix.from_coo`` on
+    the transposed triplets directly.
+    """
+    r_all, c_all, v_all = cb.global_elements()
+    order = np.lexsort((r_all, c_all))  # row-major in transposed coords
+    return CBMatrix.from_coo(
+        c_all[order], r_all[order], v_all[order], (cb.shape[1], cb.shape[0]),
+        block_size=cb.block_size, val_dtype=cb.val_dtype, thresholds=cb.thresholds,
+    )
+
+
+def build_transposed_super_streams(
+    cb: CBMatrix, group_size: int | None = None
+) -> SuperBlockStreams:
+    """Batched super-block streams for ``A^T`` (see :func:`transpose_cb`)."""
+    return build_super_streams(transpose_cb(cb), group_size=group_size)
+
+
+# ---------------------------------------------------------------------------
 # SpMM tile streams: block-dense weights for the multi-RHS / training path.
 # ---------------------------------------------------------------------------
 
@@ -782,3 +814,224 @@ def build_super_tile_stream(ts: TileStream, group_size: int | None = None) -> Su
 def super_tile_stream_from_cb(cb: CBMatrix, group_size: int | None = None) -> SuperTileStream:
     """Full CB pipeline -> densified tiles -> balanced super-tile groups."""
     return build_super_tile_stream(tile_stream_from_cb(cb), group_size=group_size)
+
+
+# ---------------------------------------------------------------------------
+# Stream updaters: the dynamic-sparsity fast path at stream granularity.
+#
+# Every stream function above permutes values (balanced slot order, lane
+# packing, tile stacking) but decides the permutation from the sparsity
+# pattern alone. The updaters record that permutation ONCE — by building
+# the stream from a "shadow" CBMatrix whose payload values are canonical
+# indices — and afterwards re-materialize a stream for fresh values with
+# a single scatter on the stream's device, never re-running the packing.
+# ---------------------------------------------------------------------------
+
+
+def _index_cb(cb: CBMatrix) -> CBMatrix:
+    """A shadow of ``cb`` whose payload values are ``canonical_rank + 1``.
+
+    Same blocking / colagg / format / balance metadata; int64 values, all
+    nonzero — so every value-sensitive step inside the stream packers
+    (dense-tile nonzero recovery, nnz balancing, ``count_nonzero`` on
+    densified tiles) sees the structure an all-nonzero real build would,
+    and the packers carry int64 payloads through untouched. Building any
+    stream from the shadow therefore yields payload arrays holding
+    ``src_index + 1`` at exactly the positions the real packing would
+    place canonical value ``src_index``.
+
+    One whole-matrix decode per format and one ``aggregate_partition``
+    over the real slots in slot order: the same bytes as the JAX
+    package's block-by-block repack, with no Python loop over blocks.
+    """
+    layout = cb.value_layout()
+    B = cb.block_size
+    n = cb.shape[1]
+    slot_l, fmt_l, count_l, eslot_l, r_l, c_l, rank_l = [], [], [], [], [], [], []
+    for fmt in (FMT_COO, FMT_CSR, FMT_DENSE):
+        slots, blk, r, c, _v = cb.format_elements(fmt)
+        brow = cb.blk_row_idx[slots].astype(np.int64)[blk]
+        bcol = cb.blk_col_idx[slots].astype(np.int64)[blk]
+        key = (brow * B + r.astype(np.int64)) * n + cb.global_x_index(brow, bcol, c)
+        slot_l.append(slots)
+        fmt_l.append(np.full(len(slots), fmt, np.uint8))
+        count_l.append(np.bincount(blk, minlength=len(slots)))
+        eslot_l.append(slots[blk])
+        r_l.append(r)
+        c_l.append(c)
+        rank_l.append(np.searchsorted(layout.keys, key) + 1)
+    slots = np.concatenate(slot_l)
+    by_slot = np.argsort(slots, kind="stable")
+    slots = slots[by_slot]
+    counts = np.concatenate(count_l)[by_slot].astype(np.int64)
+    # elements grouped by slot, each block's elements in decode order
+    e_order = np.argsort(np.concatenate(eslot_l), kind="stable")
+    brows = cb.blk_row_idx[slots]
+    part = BlockPartition(
+        shape=cb.shape, block_size=B, blk_row_idx=brows,
+        blk_col_idx=cb.blk_col_idx[slots], nnz_per_blk=counts.astype(np.int32),
+        blk_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
+        local_rows=np.concatenate(r_l)[e_order], local_cols=np.concatenate(c_l)[e_order],
+        values=np.concatenate(rank_l)[e_order].astype(np.int64),
+    )
+    packed = aggregate_partition(np.concatenate(fmt_l)[by_slot], part, np.int64)
+    vp = np.zeros_like(cb.vp_per_blk)
+    nnzb = np.zeros_like(cb.nnz_per_blk)
+    vp[slots] = packed.vp_per_blk
+    nnzb[slots] = counts
+    return dataclasses.replace(
+        cb, val_dtype=np.dtype(np.int64), nnz_per_blk=nnzb,
+        vp_per_blk=vp, packed=packed.packed,
+    )
+
+
+def _scatter_from_index(arr) -> tuple[np.ndarray, np.ndarray]:
+    """(flat positions, canonical source index) of a shadow payload array."""
+    flat = np.asarray(arr).reshape(-1)
+    pos = np.flatnonzero(flat)
+    return pos, (flat[pos] - 1).astype(np.int64)
+
+
+def _scatter_payload(template: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """Zeros shaped and typed like ``template`` with ``vals[src]`` at flat
+    ``pos`` — one gather and one scatter on ``template``'s device."""
+    out = torch.zeros(template.numel(), dtype=template.dtype, device=template.device)
+    if pos.numel():
+        out[pos] = vals[src].to(template.dtype)
+    return out.view(template.shape)
+
+
+def _values_on(canonical_vals, val_dtype: np.dtype, device: torch.device) -> torch.Tensor:
+    """Canonical values as a tensor on ``device``: numpy is cast to the
+    matrix's value dtype first (as the JAX package casts before it
+    gathers), a tensor only moved."""
+    if isinstance(canonical_vals, torch.Tensor):
+        return canonical_vals.to(device)
+    return _as_tensor(np.ascontiguousarray(canonical_vals, val_dtype)).to(device)
+
+
+def _index_tensors(*arrays) -> list[torch.Tensor]:
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int64)) for a in arrays]
+
+
+@dataclasses.dataclass(eq=False)
+class SuperStreamUpdater:
+    """Value-scatter index for a ``SuperBlockStreams`` layout.
+
+    ``apply(canonical_vals)`` returns a stream bit-identical to
+    ``build_super_streams`` on the same structure with those values
+    (values in the canonical ``to_coo`` order), at the cost of one scatter
+    per payload on the template's device. ``.to(device)`` moves the
+    template and the index tensors; ``eq=False`` keeps the object
+    identity-hashable.
+    """
+
+    template: SuperBlockStreams   # real metadata, zeroed payloads
+    val_dtype: np.dtype
+    dense_pos: torch.Tensor       # (k,) int64 flat positions / canonical sources
+    dense_src: torch.Tensor
+    panel_pos: torch.Tensor
+    panel_src: torch.Tensor
+    coo_pos: torch.Tensor
+    coo_src: torch.Tensor
+
+    def to(self, device=None) -> "SuperStreamUpdater":
+        """A copy whose template and index tensors live on ``device``."""
+        dev = resolve_device(device)
+        idx = {f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
+               if f.name.endswith(("_pos", "_src"))}
+        return dataclasses.replace(self, template=self.template.to(dev), **idx)
+
+    def apply(self, canonical_vals) -> SuperBlockStreams:
+        """The stream for fresh values: numpy or a tensor, scattered on the
+        template's device. The new stream shares the template's block rows
+        and combine plan (they depend on the structure only), so its first
+        product sorts nothing on the host."""
+        from repro_torch.kernels import ops
+
+        t = self.template
+        vals = _values_on(canonical_vals, self.val_dtype, t.device)
+        new = dataclasses.replace(
+            t,
+            dense_tiles=_scatter_payload(t.dense_tiles, self.dense_pos, self.dense_src, vals),
+            panel_vals=_scatter_payload(t.panel_vals, self.panel_pos, self.panel_src, vals),
+            coo_vals=_scatter_payload(t.coo_vals, self.coo_pos, self.coo_src, vals),
+        )
+        ops.share_prepared(t, new)
+        return new
+
+
+def _super_updater_from_shadow(shadow: SuperBlockStreams, vdt: np.dtype) -> SuperStreamUpdater:
+    idx = {}
+    for name, field in (("dense", "dense_tiles"), ("panel", "panel_vals"), ("coo", "coo_vals")):
+        idx[f"{name}_pos"], idx[f"{name}_src"] = _index_tensors(
+            *_scatter_from_index(getattr(shadow, field).numpy()))
+    template = dataclasses.replace(
+        shadow, **{f: torch.from_numpy(np.zeros(tuple(getattr(shadow, f).shape), vdt))
+                   for f in _PAYLOAD_FIELDS})
+    return SuperStreamUpdater(template=template, val_dtype=vdt, **idx)
+
+
+def super_stream_updater(cb: CBMatrix, group_size: int | None = None) -> SuperStreamUpdater:
+    """Record ``build_super_streams``'s value permutation once.
+
+    The returned updater's ``apply`` matches a fresh
+    ``build_super_streams(cb.update_values(v), group_size)`` bit for bit
+    whenever the new values are nonzero (an exact 0.0 would change which
+    elements a dense tile recovers — structure drift, not an update).
+    The updater lives on the CPU until ``.to(device)``.
+    """
+    shadow = build_super_streams(_index_cb(cb), group_size=group_size)
+    return _super_updater_from_shadow(shadow, np.dtype(cb.val_dtype))
+
+
+def transposed_super_stream_updater(
+    cb: CBMatrix, group_size: int | None = None
+) -> SuperStreamUpdater:
+    """Value-scatter index for the ``A^T`` stream, in **forward** order.
+
+    ``transpose_cb`` re-runs the whole CB pipeline on swapped triplets
+    but carries values through untouched, so transposing the shadow
+    matrix lands forward canonical indices at the transposed stream's
+    payload positions: one ``apply(forward_canonical_vals)`` updates the
+    rmatvec path with no transposed-order bookkeeping anywhere.
+    """
+    shadow = build_super_streams(transpose_cb(_index_cb(cb)), group_size=group_size)
+    return _super_updater_from_shadow(shadow, np.dtype(cb.val_dtype))
+
+
+@dataclasses.dataclass(eq=False)
+class SuperTileUpdater:
+    """Value-scatter index for a ``SuperTileStream`` layout (SpMM path)."""
+
+    template: SuperTileStream     # real slot maps, zeroed tiles
+    val_dtype: np.dtype
+    pos: torch.Tensor             # (k,) int64
+    src: torch.Tensor             # (k,) int64
+
+    def to(self, device=None) -> "SuperTileUpdater":
+        """A copy whose template and index tensors live on ``device``."""
+        dev = resolve_device(device)
+        return dataclasses.replace(self, template=self.template.to(dev),
+                                   pos=self.pos.to(dev), src=self.src.to(dev))
+
+    def apply(self, canonical_vals) -> SuperTileStream:
+        """The tile stream for fresh values (see ``SuperStreamUpdater.apply``)."""
+        from repro_torch.kernels import ops
+
+        t = self.template
+        vals = _values_on(canonical_vals, self.val_dtype, t.device)
+        new = dataclasses.replace(t, tiles=_scatter_payload(t.tiles, self.pos, self.src, vals))
+        ops.share_prepared(t, new)
+        return new
+
+
+def super_tile_updater(cb: CBMatrix, group_size: int | None = None) -> SuperTileUpdater:
+    """Record ``super_tile_stream_from_cb``'s value permutation once."""
+    shadow = super_tile_stream_from_cb(_index_cb(cb), group_size=group_size)
+    vdt = np.dtype(cb.val_dtype)
+    pos, src = _index_tensors(*_scatter_from_index(shadow.tiles.numpy()))
+    template = dataclasses.replace(
+        shadow, tiles=torch.from_numpy(np.zeros(tuple(shadow.tiles.shape), vdt)))
+    return SuperTileUpdater(template=template, val_dtype=vdt, pos=pos, src=src)

@@ -124,6 +124,54 @@ def pruned_weight(m, n, block_size=16, block_sparsity=0.85, seed=0):
     return _dedup(rows, cols, m, n, rng)
 
 
+def spd_banded(m, n=None, bandwidth=9, fill=0.7, seed=0):
+    """Symmetric positive-definite banded/FEM matrix (the solver corpus).
+
+    Symmetrizes a :func:`banded` draw (``(A + A^T) / 2``) and then shifts
+    the diagonal to ``sum_j |a_ij| + 1`` — strict diagonal dominance with
+    a positive diagonal, hence SPD by Gershgorin, with a modest condition
+    number so Krylov iteration counts are stable across dtypes. Always
+    square: ``d = min(m, n)`` when ``n`` is given.
+
+    The sums are ``np.bincount`` over the same inputs in the same order as
+    the JAX package's ``np.add.at`` (sequential float64 adds into zeros),
+    so the triplets are bit-equal to its and fast at millions of rows.
+    """
+    d = m if n is None else min(m, n)
+    r, c, v = banded(d, d, bandwidth=bandwidth, fill=fill, seed=seed)
+    off = r != c
+    r2 = np.concatenate([r[off], c[off]])
+    c2 = np.concatenate([c[off], r[off]])
+    v2 = np.concatenate([v[off], v[off]]) * 0.5
+    key = r2 * d + c2
+    uk, inv = np.unique(key, return_inverse=True)
+    vs = np.bincount(inv.reshape(-1), weights=v2, minlength=len(uk))
+    rr, cc = uk // d, uk % d
+    rowsum = np.bincount(rr, weights=np.abs(vs), minlength=d)
+    rows = np.concatenate([rr, np.arange(d)])
+    cols = np.concatenate([cc, np.arange(d)])
+    vals = np.concatenate([vs, rowsum + 1.0])
+    return rows.astype(np.int64), cols.astype(np.int64), vals
+
+
+def spd_corpus(scale: str = "small", seed: int = 0):
+    """SPD matrices for the solver benchmarks/tests (same tuple layout as
+    :func:`corpus`)."""
+    if scale == "small":
+        dims = [192, 320]
+    elif scale == "bench":
+        dims = [4096, 8192]
+    else:
+        raise errors.InvalidArgError(scale)
+    out = []
+    for i, d in enumerate(dims):
+        r, c, v = spd_banded(d, bandwidth=9 + 2 * i, seed=seed + i)
+        out.append(
+            (MatrixSpec(f"spd_banded_{d}", "spd", d, d), r, c, v, (d, d))
+        )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # MatrixMarket ingestion — real SuiteSparse matrices alongside the
 # synthetic corpus.

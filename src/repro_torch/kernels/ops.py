@@ -210,6 +210,23 @@ def _prepare(streams, group_size) -> _Prepared:
     return cache[key]
 
 
+def share_prepared(template, stream) -> None:
+    """Hand ``stream`` what ``template`` derived for its first call.
+
+    ``stream`` is a packed ``SuperBlockStreams`` or ``SuperTileStream`` with
+    the template's metadata and new payloads (a value updater's output).
+    The block rows, tile route and combine plan depend on the metadata
+    only, so ``stream`` gets the template's (computed now if the template
+    has none yet) with its own payloads behind them: no second host sort.
+    """
+    if isinstance(template, SuperBlockStreams):
+        prep = _prepare(template, None)
+        stream.__dict__["_prepared"] = {None: dataclasses.replace(prep, sup=stream)}
+    else:
+        _, route = _prepare_tiles(template, None)
+        stream.__dict__["_prepared"] = {None: (stream, route)}
+
+
 def _gather(x: torch.Tensor, xidx: torch.Tensor) -> torch.Tensor:
     """x[xidx] with the int32 indices as stored (no int64 copy of the stream)."""
     return torch.index_select(x, 0, xidx.reshape(-1)).reshape(xidx.shape)

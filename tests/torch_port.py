@@ -89,6 +89,36 @@ def assert_streams_equal(jax_streams, torch_streams, tag=""):
         assert getattr(jax_streams, f) == getattr(torch_streams, f), (tag, f)
 
 
+def to_torch_operator(jax_op):
+    """The port's CBLinearOperator over a JAX-package operator's exact stream
+    bytes (forward, transposed and tile streams, where the JAX operator has
+    them), on the CPU."""
+    from repro_torch.solvers import CBLinearOperator as TorchOperator
+
+    return TorchOperator.from_streams(
+        jax_op.shape, jax_op.block_size, jax_op.nnz, to_torch_streams(jax_op.streams),
+        streams_T=None if jax_op.streams_T is None else to_torch_streams(jax_op.streams_T),
+        tiles=None if jax_op.tiles is None else to_torch_tiles(jax_op.tiles))
+
+
+def to_torch_preconditioner(jax_M):
+    """The port's preconditioner holding a JAX-package preconditioner's
+    arrays (identity, Jacobi or block-Jacobi), on the CPU."""
+    from repro_torch import solvers as tsolvers
+
+    kind = type(jax_M).__name__
+    if kind == "IdentityPreconditioner":
+        return tsolvers.IdentityPreconditioner()
+    if kind == "JacobiPreconditioner":
+        return tsolvers.JacobiPreconditioner.from_numpy(np.asarray(jax_M.inv_diag),
+                                                        device="cpu")
+    if kind == "BlockJacobiPreconditioner":
+        return tsolvers.BlockJacobiPreconditioner.from_numpy(
+            jax_M.m, jax_M.block_size, np.asarray(jax_M.inv_blocks), device="cpu")
+    raise TypeError(f"no converter for {kind}")
+
+
 __all__ = ["GROUP_SIZES", "Scenario", "scenario_cut", "ids", "torch_cb",
            "to_torch_streams", "assert_streams_equal", "STREAM_FIELDS",
-           "to_torch_tiles", "assert_tiles_equal", "TILE_FIELDS"]
+           "to_torch_tiles", "assert_tiles_equal", "TILE_FIELDS",
+           "to_torch_operator", "to_torch_preconditioner"]
