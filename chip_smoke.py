@@ -34,13 +34,37 @@ the ``nvidia-smi`` line):
    the card, a second run must be bit-equal, and each kernel is compared with
    its plain version and timed at this matrix's shapes. Three matrices, one
    dominated by each format, B = 16, float32, default thresholds and group
-   size, each with streams larger than the card's 50 MB L2.
+   size, each with streams larger than the card's 50 MB L2. Then the whole
+   call is timed with ``repro_torch.obs`` on (the default) and its launch
+   accounting held to the wrappers' counters: after those calls, obs's
+   ``repro.ops.spmv.launches`` / ``steps`` per format must equal each
+   wrapper's ``.launches`` and ``spmv_launch_stats`` times the calls
+   (``obs_accounting``); ``spmv_enqueue_ms_obs`` is the enqueue with obs on
+   and off in turns, and their difference.
 5. ``matmat`` — the multi-RHS product on the ``banded`` matrix of step 4:
    ``super_tile_stream_from_cb`` -> ``.to()`` -> ``ops.cb_spmm`` with 16
    float32 right-hand sides, held against scipy's float64 CSR product, against
    ``impl="reference"``, and against itself (bit-equal); ``torch.sparse`` CSR
    ``A @ X`` is the yardstick.
-6. ``solve``, one line per run — the solver subsystem (``repro_torch.solvers``)
+6. ``plan``, one line per search — the autotuner (``repro_torch.autotune``)
+   on the ``spmv`` lines' matrices, float32, the same seeds:
+   ``CBMatrix.plan_for`` in ``mode="heuristic"`` (shape arithmetic only) and
+   ``mode="timed"`` (its shortlist timed through ``cb_spmv(impl="cuda")`` with
+   CUDA events) on ``power_law``, ``mode="timed"`` on ``banded``. Each line: the
+   chosen block size, thresholds, colagg and group size, the cost model's
+   predicted and the built streams' measured padded elements and steps,
+   ``t_spmv`` and ``plan_s`` (the search's host seconds); then the planned path
+   ``from_plan`` -> ``build_super_streams(plan.group_size)`` -> ``.to()`` ->
+   ``cb_spmv(plan=)``, counted, held to the float64 oracle, ``impl="reference"``
+   and itself (bit-equal), each kernel against its plain version at the
+   planned shapes, and timed beside the ``spmv`` line's default configuration
+   (``default_spmv_ms``). A timed plan also goes through a ``PlanCache`` round
+   trip in a temporary directory: a fresh cache must hit, and the rebuilt run
+   must be bit-equal (``plan_cache_hit_s``). ``plan_phase`` gives the phase's
+   seconds. The ``solve`` phase adds one more ``plan`` line, ``cg planned``:
+   ``CBLinearOperator.from_cb(cb, plan="auto")`` on its SPD matrix, CG on it
+   converged, within 2 iterations of the unplanned CG, bit-equal over two runs.
+7. ``solve``, one line per run — the solver subsystem (``repro_torch.solvers``)
    on the kernels above, every operator built by ``CBLinearOperator.from_cb``
    on its default device (CUDA), float32, B = 16, default thresholds and
    group size: ``cg`` (block-Jacobi, tol 1e-6) on ``spd_banded(2097152,
@@ -52,7 +76,9 @@ the ``nvidia-smi`` line):
    columns through ``matmat``, degree 8, 5 rounds, the interval from the
    host's Gershgorin bounds) on the same matrix, held against
    ``impl="reference"``; ``bicgstab``, ``gmres`` (restart 20) and ``robust``
-   (``robust_solve``, its attempt ladder printed) on ``banded(2097152,
+   (``robust_solve``, its attempt ladder printed, obs's
+   ``repro.solvers.robust.attempts`` held to it and each attempt's span
+   wall time printed) on ``banded(2097152,
    bandwidth=7, fill=0.8) + 8 I``, held converged at the float64 residual;
    ``pagerank`` on the edges of ``power_law(262144, 262144, avg_deg=8)``
    held against scipy's float64 damped power iteration (L1), then
@@ -64,15 +90,15 @@ the ``nvidia-smi`` line):
    ``host_syncs`` (reads of the loop's stop flag) and ``library_iter_ms`` (the
    same solver over ``torch.sparse`` CSR products, a yardstick). The launch
    counters are zeroed before and read after one counted run of each.
-7. ``mlp_train`` — one training step of the cb-paper MLP at full width
+8. ``mlp_train`` — one training step of the cb-paper MLP at full width
    (granite-8b's d_model 4096 and d_ff 14336, B = 128, keep 0.25, 4096
    tokens): three ``CBSparseLinear`` layers, ``silu(gate(x)) * up(x)`` ->
    ``down``, mean squared error, ``backward()``, SGD. Held against the same
    step in float64 with dense masked weights, two steps bit-equal; the dense
    ``torch.matmul`` step (TF32 off and on) is the yardstick.
-8. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
-   on each matrix, one ``cb_spmm`` call, the counted solver runs, one training
-   step, summed; ``launches_per_call`` has them apart, keyed by the counted run,
+9. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+   on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
+   runs, one training step, summed; ``launches_per_call`` has them apart, keyed by the counted run,
    the solver runs per iteration), worst error seen,
    time (and the host's time to enqueue one call, ``enqueue_ms``: where it
    is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
@@ -81,7 +107,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-9. the ``nvidia-smi`` name and power limit, then the verdict line.
+10. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -98,6 +124,7 @@ speaks of the full-size run.
 from __future__ import annotations
 
 import argparse
+import collections
 import inspect
 import json
 import math
@@ -105,6 +132,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,7 +150,8 @@ from repro_torch.data import matrices  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, cb_block_dense, cb_colagg, cb_combine, cb_coo, cb_spmm, ops,
 )
-from repro_torch import solvers  # noqa: E402
+from repro_torch import obs, solvers  # noqa: E402
+from repro_torch.autotune import PlanCache, SearchSettings  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 
@@ -490,6 +519,54 @@ def spmm_edge_grid(gen, payload) -> int:
 # the main path, one matrix at a time
 # ---------------------------------------------------------------------------
 
+def oracle_check(tag, rows, cols, vals, shape, x_np, y) -> float:
+    """y against the float64 ``dense_oracle``, relative to (|A| |x|) row by row;
+    fails beyond ``ORACLE_TOL``. Returns the largest relative error."""
+    y64 = dense_oracle(rows, cols, vals.astype(np.float32).astype(np.float64), shape,
+                       x_np.astype(np.float64))
+    mag = dense_oracle(rows, cols, np.abs(vals.astype(np.float32)).astype(np.float64), shape,
+                       np.abs(x_np).astype(np.float64))
+    err = np.abs(y.cpu().numpy().astype(np.float64) - y64)
+    rel = float((err / np.maximum(mag, 1e-30)).max())
+    if not (err <= ORACLE_TOL * mag + 1e-30).all():
+        fail(f"{tag}: y differs from the float64 oracle by {rel:.3e} of |A||x|")
+    return rel
+
+
+def check_accounting(tag, s) -> dict:
+    """``repro.ops.spmv.*`` in the obs registry against the wrappers' own launch
+    counters and ``spmv_launch_stats``, both zeroed before the calls counted
+    here; fails on any difference."""
+    calls = obs.counter("repro.ops.spmv.calls").value(impl="cuda")
+    stats = ops.spmv_launch_stats(s)
+    got = {}
+    for fmt in ("dense", "panel", "coo"):
+        reg_launches = obs.counter("repro.ops.spmv.launches").value(format=fmt)
+        reg_steps = obs.counter("repro.ops.spmv.steps").value(format=fmt)
+        want = (WRAPPERS[fmt].launches, calls * stats["launches"][fmt],
+                calls * stats["steps"][fmt])
+        if (reg_launches, reg_launches, reg_steps) != want:
+            fail(f"{tag}: obs counts {fmt} launches {reg_launches}, steps {reg_steps}; the "
+                 f"wrapper launched {want[0]}, spmv_launch_stats x {calls} calls gives "
+                 f"{want[1]} launches and {want[2]} steps")
+        got[fmt] = dict(launches=reg_launches, steps=reg_steps)
+    return dict(calls=calls, per_format=got, held_to="the wrappers' launch counters and "
+                "spmv_launch_stats x calls")
+
+
+def obs_enqueue_ms(fn, pairs: int = 7) -> dict:
+    """Host enqueue time of ``fn()`` with obs on (the default) and off, in
+    turns (on, off, on, off, ...), medians of the ``pairs`` of each."""
+    on, off = [], []
+    for _ in range(pairs):
+        on.append(enqueue_ms(fn))
+        obs.configure(enabled=False)
+        off.append(enqueue_ms(fn))
+        obs.configure(enabled=True)
+    m_on, m_off = statistics.median(on), statistics.median(off)
+    return dict(on=m_on, off=m_off, on_minus_off=m_on - m_off, runs_on=on, runs_off=off)
+
+
 def make_matrices(seed: int):
     big, long_ = 262144, 2097152
     return [
@@ -547,14 +624,7 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
         fail(f"{name}: y has shape {tuple(y.shape)} dtype {y.dtype} or is not finite")
     if not torch.equal(y, y_again):
         fail(f"{name}: two runs of cb_spmv are not bit-equal")
-    y64 = dense_oracle(rows, cols, vals.astype(np.float32).astype(np.float64), shape,
-                       x_np.astype(np.float64))
-    mag = dense_oracle(rows, cols, np.abs(vals.astype(np.float32)).astype(np.float64), shape,
-                       np.abs(x_np).astype(np.float64))
-    err = np.abs(y.cpu().numpy().astype(np.float64) - y64)
-    oracle_rel = float((err / np.maximum(mag, 1e-30)).max())
-    if not (err <= ORACLE_TOL * mag + 1e-30).all():
-        fail(f"{name}: y differs from the float64 oracle by {oracle_rel:.3e} of |A||x|")
+    oracle_rel = oracle_check(name, rows, cols, vals, shape, x_np, y)
     y_ref = ops.cb_spmv(s, x, impl="reference")
     ref_err = float((y - y_ref).abs().max())
     if ref_err > KERNEL_TOL * max(1.0, float(y_ref.abs().max())):
@@ -623,9 +693,17 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
         per_kernel[k].append(rows_out[k])
     del pairs, parts, y2d, y_acc, brow64
 
-    # -- the whole call, timed -------------------------------------------------
-    spmv_ms = time_ms(lambda: ops.cb_spmv(s, x))
-    spmv_enqueue_ms = enqueue_ms(lambda: ops.cb_spmv(s, x))
+    # -- the whole call, timed; obs's launch accounting held to the wrappers' --
+    def spmv_call():
+        return ops.cb_spmv(s, x)
+
+    obs.reset()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    spmv_ms = time_ms(spmv_call)
+    spmv_enqueue_ms = enqueue_ms(spmv_call)
+    accounting = check_accounting(name, s)
+    enqueue_obs = obs_enqueue_ms(spmv_call)
     gather_ms = time_ms(lambda: [ops._gather(x, i) for i in
                                  (s.dense_xidx, s.panel_xidx, s.coo_xidx)])
     region = s.region_nbytes()
@@ -647,14 +725,15 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
                            to_device=t_to, first_call=t_first),
          stream_bytes=sum(region.values()) - region["x"] - region["y"],
          region_bytes=sum(region.values()),
-         launches=counted, spmv_ms=spmv_ms, spmv_enqueue_ms=spmv_enqueue_ms, gather_ms=gather_ms,
+         launches=counted, spmv_ms=spmv_ms, spmv_enqueue_ms=spmv_enqueue_ms,
+         spmv_enqueue_ms_obs=enqueue_obs, obs_accounting=accounting, gather_ms=gather_ms,
          kernel_ms={k: v["ms"] for k, v in rows_out.items()},
          effective_GBps=sum(region.values()) / spmv_ms / 1e6,
          bound_ms=sum(region.values()) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
          library_ms=library_ms, library="torch.sparse CSR A @ x",
          err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
          err_vs_library_abs=lib_err, runs_bit_equal=True)
-    return cb, (rows, cols, vals)
+    return cb, (rows, cols, vals), spmv_ms
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +881,122 @@ def run_matmat(call, cb, coo, seed, per_kernel, launches):
          library_ms=library_ms, library="torch.sparse CSR A @ X",
          err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
          err_vs_library_abs=lib_err, runs_bit_equal=True)
+
+
+# ---------------------------------------------------------------------------
+# the plan phase: the autotuner picks a configuration, the planned path runs it
+# ---------------------------------------------------------------------------
+
+# (matrix of the spmv lines, search mode): the heuristic ranks on shape
+# arithmetic alone, the timed search times its shortlist through the kernels
+PLAN_RUNS = (("power_law", "heuristic"), ("power_law", "timed"), ("banded", "timed"))
+
+
+def plan_fields(plan) -> dict:
+    return dict(block_size=plan.block_size, th0=plan.th0, th1=plan.th1, th2=plan.th2,
+                colagg=plan.colagg, group_size=plan.group_size, mode=plan.mode,
+                predicted_padded_elems=plan.predicted_padded_elems,
+                predicted_steps=plan.predicted_steps,
+                measured_padded_elems=plan.measured_padded_elems,
+                measured_steps=plan.measured_steps, t_spmv=plan.t_spmv)
+
+
+def planned_streams(coo, shape, plan):
+    """``from_plan`` -> ``build_super_streams(plan.group_size)`` -> ``.to()``."""
+    cb = CBMatrix.from_plan(*coo, shape, plan)
+    return build_super_streams(cb, group_size=plan.group_size).to()
+
+
+def check_kernels_at(tag, s, x) -> None:
+    """Each present SpMV kernel against its plain version at ``s``'s shapes."""
+    B = s.block_size
+    for k, groups, pair in (
+            ("dense", s.num_dense_groups, lambda: dense_pair(s.dense_tiles, ops._gather(x, s.dense_xidx))),
+            ("panel", s.num_panel_groups, lambda: panel_pair(s.panel_vals, ops._gather(x, s.panel_xidx))),
+            ("coo", s.num_coo_groups, lambda: coo_pair(s.coo_codes, s.coo_vals,
+                                                       ops._gather(x, s.coo_xidx), B))):
+        if groups:
+            kern, plain = pair()
+            compare(k, kern(), plain(), f"{tag} B={B}")
+
+
+def run_plan(inputs, seed, launches) -> None:
+    """``CBMatrix.plan_for`` on the spmv lines' matrices, then the planned path
+    counted and checked; the timed plans also through a ``PlanCache`` round trip."""
+    t_phase = time.perf_counter()
+    chosen = {}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        for name, mode in PLAN_RUNS:
+            coo, shape, call, default_spmv_ms = inputs[name]
+            cache = PlanCache(cache_dir) if mode == "timed" else None
+            t0 = time.perf_counter()
+            plan = CBMatrix.plan_for(*coo, shape, cache=cache, settings=SearchSettings(mode=mode))
+            plan_s = time.perf_counter() - t0
+            if plan.mode != mode or (mode == "timed") != (plan.t_spmv is not None):
+                fail(f"plan {name}: asked for mode {mode}, got {plan.mode} (t_spmv {plan.t_spmv})")
+            chosen[name, mode] = plan
+            x_np = np.random.default_rng(seed + 7).standard_normal(shape[1]).astype(np.float32)
+
+            # -- the planned path, counted ----------------------------------------
+            for w in WRAPPERS.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            s = planned_streams(coo, shape, plan)
+            x = torch.from_numpy(x_np).to(DEV)
+            y = ops.cb_spmv(s, x, plan=plan)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            counted = {k: w.launches for k, w in WRAPPERS.items()}
+            for k in present_kernels(s):
+                if counted[k] < 1:
+                    fail(f"plan {name} {mode}: kernel {k} has work but was not launched")
+            for k, c in counted.items():
+                launches[k] += c
+            if not torch.equal(y, ops.cb_spmv(s, x, plan=plan)):
+                fail(f"plan {name} {mode}: two planned runs are not bit-equal")
+            oracle_rel = oracle_check(f"plan {name} {mode}", *coo, shape, x_np, y)
+            y_ref = ops.cb_spmv(s, x, impl="reference")
+            ref_err = float((y - y_ref).abs().max())
+            if ref_err > KERNEL_TOL * max(1.0, float(y_ref.abs().max())):
+                fail(f"plan {name} {mode}: impl='cuda' differs from impl='reference' by "
+                     f"{ref_err:.3e}")
+            del y_ref
+            check_kernels_at(f"plan {name} {mode}", s, x)
+            spmv_ms = time_ms(lambda: ops.cb_spmv(s, x, plan=plan))
+            spmv_enqueue_ms = enqueue_ms(lambda: ops.cb_spmv(s, x, plan=plan))
+            line = dict(matrix=call, **plan_fields(plan), plan_s=plan_s,
+                        from_plan_to_first_call_s=t_build, launches=counted,
+                        groups=ops.spmv_launch_stats(s)["steps"], spmv_ms=spmv_ms,
+                        spmv_enqueue_ms=spmv_enqueue_ms, default_spmv_ms=default_spmv_ms,
+                        default="B = 16, default thresholds, colagg auto, group size 16 "
+                                "(the spmv line)",
+                        err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
+                        runs_bit_equal=True)
+            del s
+
+            # -- a PlanCache round trip: a fresh cache on the same directory hits -----
+            if cache is not None:
+                fresh = PlanCache(cache_dir)
+                t0 = time.perf_counter()
+                hit = fresh.get(plan.structure_hash, shape=shape, nnz=plan.nnz)
+                line["plan_cache_hit_s"] = time.perf_counter() - t0
+                if hit != plan or (fresh.hits, fresh.misses) != (1, 0):
+                    fail(f"plan {name} {mode}: the cache gave {hit} ({fresh.hits} hits, "
+                         f"{fresh.misses} misses)")
+                s = planned_streams(coo, shape, hit)
+                if not torch.equal(ops.cb_spmv(s, x, plan=hit), y):
+                    fail(f"plan {name} {mode}: the cached plan's run is not bit-equal")
+                line["cache_round_trip_bit_equal"] = True
+                del s
+            if name == "power_law" and mode == "timed":
+                h = chosen["power_law", "heuristic"]
+                line["agrees_with_heuristic"] = all(
+                    getattr(h, f) == getattr(plan, f)
+                    for f in ("block_size", "th0", "th1", "th2", "colagg", "group_size"))
+            emit("plan", **line)
+            del y, x
+            torch.cuda.empty_cache()
+    emit("plan_phase", seconds=time.perf_counter() - t_phase, runs=len(PLAN_RUNS))
 
 
 def block_grads(W_grad, spec):
@@ -1165,7 +1360,6 @@ def run_solve(seed, launches, solver_launches):
     M = solvers.block_jacobi(cb)
     torch.cuda.synchronize()
     t_op = time.perf_counter() - t0
-    del cb
     A64 = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=(n, n))
     lib = LibraryOperator(rows, cols, vals, (n, n))
     rng = np.random.default_rng(seed + 13)
@@ -1221,6 +1415,39 @@ def run_solve(seed, launches, solver_launches):
                                       operator_and_preconditioner=t_op)),
                solver_launches, launches)
     del res, again, ref, lib_res
+
+    # the planned solver path: from_cb(plan="auto") times its candidates on the card
+    t0 = time.perf_counter()
+    pop = solvers.CBLinearOperator.from_cb(cb, plan="auto")
+    torch.cuda.synchronize()
+    t_plan_op = time.perf_counter() - t0
+    del cb
+    obs.reset()
+    pres, counted, syncs = counted_run("cg planned", lambda: solvers.cg(pop, b_dev, M, **cg_kw),
+                                       present_kernels(pop.streams))
+    for k, c in counted.items():
+        launches[k] += c
+    label = pop.plan.structure_hash[:12]           # obs's measured-vs-predicted pair
+    exec_line = dict(calls=obs.counter("repro.autotune.exec.calls").value(plan=label), **{
+        f"{what}_{kind}": obs.counter(f"repro.autotune.exec.{what}").value(plan=label, kind=kind)
+        for what in ("padded_elems", "steps") for kind in ("measured", "predicted")})
+    p_rel = residual64(A64, pres.x, b)
+    if not bool(pres.converged) or p_rel > RESIDUAL_TOL:
+        fail(f"plan cg: converged {bool(pres.converged)} ({pres.reason}), float64 residual "
+             f"{p_rel:.3e}")
+    if abs(int(pres.iterations) - iters) > 2:
+        fail(f"plan cg: {int(pres.iterations)} iterations against the unplanned {iters}")
+    if not torch.equal(pres.x, solvers.cg(pop, b_dev, M, **cg_kw).x):
+        fail("plan cg: two runs are not bit-equal")
+    p_ms = solve_ms(lambda: solvers.cg(pop, b_dev, M, **cg_kw))
+    emit("plan", run="cg planned", matrix=f"spd_banded({n}, bandwidth=9)",
+         **plan_fields(pop.plan), plan_and_operator_s=t_plan_op,
+         iterations=int(pres.iterations), unplanned_iterations=iters, converged=True,
+         residual_f64_rel=p_rel, solve_ms=p_ms, iter_ms=p_ms / int(pres.iterations),
+         spmv_ms=time_ms(lambda: pop.matvec(x_dev)),
+         unplanned_spmv_ms=time_ms(lambda: op.matvec(x_dev)), host_syncs=syncs,
+         launches=counted, autotune_exec=exec_line, runs_bit_equal=True)
+    del pop, pres
 
     # power iteration: the dominant eigenpair, held against the reference on the card
     v0 = torch.from_numpy(np.random.default_rng(seed + 17).standard_normal(n)
@@ -1335,12 +1562,27 @@ def run_solve(seed, launches, solver_launches):
                    lambda: op.matvec(x_dev), extra, solver_launches, launches)
         del res, ref, lib_res
 
+    obs.reset()
     rob, counted, syncs = counted_run(
         "robust", lambda: solvers.robust_solve(op, b_dev, tol=1e-6, maxiter=500), present)
     rel = residual64(A64, rob.x, b)
     if not rob.converged or rel > RESIDUAL_TOL:
         fail(f"solve robust: converged {rob.converged} ({rob.reason}), float64 residual "
              f"{rel:.3e}, attempts {rob.attempts}")
+    # the attempt telemetry: obs's counters against the result's own ladder
+    attempts_ctr = obs.counter("repro.solvers.robust.attempts")
+    ladder = collections.Counter((a.solver, a.reason) for a in rob.attempts)
+    if attempts_ctr.total() != len(rob.attempts) or any(
+            attempts_ctr.value(solver=sv, reason=rs) != c for (sv, rs), c in ladder.items()):
+        fail(f"solve robust: obs counts {attempts_ctr.total()} attempts "
+             f"({obs.snapshot().get('repro.solvers.robust.attempts')}), the result "
+             f"{len(rob.attempts)}")
+    obs_attempts = attempts_ctr.total()
+    spans = obs.tracer().records()
+    attempt_wall_s = [dict(solver=r.attrs["solver"], status=r.attrs.get("status"),
+                           iterations=r.attrs.get("iterations"), wall_s=r.duration)
+                      for r in spans if r.name.startswith("solve:")]
+    robust_wall_s = next(r.duration for r in spans if r.name == "robust_solve")
     rob_iters = sum(a.iterations for a in rob.attempts)
     lib_rob = solvers.robust_solve(lib, b_dev, tol=1e-6, maxiter=500)
     win = getattr(solvers, rob.solver)
@@ -1353,7 +1595,9 @@ def run_solve(seed, launches, solver_launches):
                     residual_f64_rel=rel, iterations_are="summed over the attempts",
                     iter_enqueue_ms_of=f"{rob.solver}, the deciding solver",
                     attempts=[dict(solver=a.solver, status=a.reason, iterations=a.iterations,
-                                   residual=a.residual) for a in rob.attempts]),
+                                   residual=a.residual) for a in rob.attempts],
+                    obs_attempts=obs_attempts, attempt_wall_s=attempt_wall_s,
+                    robust_solve_wall_s=robust_wall_s),
                solver_launches, launches)
     del op, lib, A64, rob, lib_rob, b_dev, x_dev, rows, cols, vals
     torch.cuda.empty_cache()
@@ -1469,12 +1713,19 @@ def main() -> None:
 
     per_kernel = {k: [] for k in WRAPPERS}
     launches = {k: 0 for k in WRAPPERS}
+    plan_inputs = {}                            # the plan phase's matrices, kept from here
     for name, heavy, call, make, shape in make_matrices(args.seed):
-        cb, coo = run_matrix(name, heavy, call, make, shape, args.seed, per_kernel, launches)
+        cb, coo, spmv_ms = run_matrix(name, heavy, call, make, shape, args.seed, per_kernel,
+                                      launches)
         if name == "banded":                    # the solver's multi-RHS product, same matrix
             run_matmat(call, cb, coo, args.seed, per_kernel, launches)
+        if name in {n for n, _ in PLAN_RUNS}:
+            plan_inputs[name] = (coo, shape, call, spmv_ms)
         del cb, coo
         torch.cuda.empty_cache()
+    run_plan(plan_inputs, args.seed, launches)
+    del plan_inputs
+    torch.cuda.empty_cache()
     solver_launches = {}                        # kernel -> {solve run: launches per iteration}
     run_solve(args.seed, launches, solver_launches)
     torch.cuda.empty_cache()

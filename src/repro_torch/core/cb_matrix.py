@@ -174,6 +174,80 @@ class CBMatrix:
         )
 
     # ------------------------------------------------------------------
+    # Planning — the autotune subsystem's entry points, surfaced here so
+    # ``from_coo``'s callers find them next to the constructor they tune.
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def plan_for(
+        cls,
+        rows: np.ndarray,
+        cols: np.ndarray,
+        vals: np.ndarray,
+        shape: tuple[int, int],
+        *,
+        val_dtype=np.float32,
+        cache=None,
+        settings=None,
+        device=None,
+    ):
+        """``from_coo``'s companion: pick a per-matrix configuration.
+
+        Runs the autotune search (features -> cost model -> empirical
+        refinement; see ``repro_torch.autotune``) and returns a ``Plan``
+        whose (block size, thresholds, colagg, group size) can be applied
+        via :meth:`from_plan`. ``cache`` is an optional
+        ``autotune.PlanCache`` — a structure-hash hit skips the search
+        entirely. ``device`` is where a timed search times the kernels
+        (``None``: the CUDA device; with ``"cpu"`` the default mode is
+        heuristic).
+        """
+        from repro_torch.autotune.search import plan_search
+
+        return plan_search(rows, cols, vals, shape, val_dtype=val_dtype,
+                           cache=cache, settings=settings, device=device)
+
+    @classmethod
+    def from_plan(
+        cls,
+        rows: np.ndarray,
+        cols: np.ndarray,
+        vals: np.ndarray,
+        shape: tuple[int, int],
+        plan,
+    ) -> "CBMatrix":
+        """Build the CB structure with a ``Plan``'s chosen configuration.
+
+        The plan's colagg decision was *resolved* at planning time, so it
+        is passed as an explicit bool — rebuilding from a cached plan is
+        bit-identical to the freshly-planned build even if the th0 gate
+        would flip on a re-probe.
+
+        The plan is validated before any work runs: shape against the
+        matrix, plus internal consistency (thresholds must resolve at
+        the plan's block size) — a stale or hand-edited plan fails here
+        with ``errors.PlanStaleError`` instead of mis-building silently.
+        The cache path (``autotune.PlanCache.get``) performs the same
+        validation and treats failures as a counted miss.
+        """
+        checker = getattr(plan, "check_valid", None)
+        if checker is not None:
+            reason = checker(shape=shape)
+        else:
+            reason = (None if tuple(shape) == tuple(plan.shape) else
+                      f"plan was made for shape {plan.shape}, "
+                      f"got {tuple(shape)}")
+        if reason is not None:
+            raise errors.PlanStaleError(reason)
+        return cls.from_coo(
+            rows, cols, vals, shape,
+            block_size=plan.block_size,
+            val_dtype=np.dtype(plan.val_dtype),
+            thresholds=plan.thresholds,
+            use_column_aggregation=plan.colagg,
+        )
+
+    # ------------------------------------------------------------------
     # Persistence — amortize preprocessing across *processes* (a solver
     # restart or benchmark rerun loads the structure instead of rebuilding
     # it). The file format (schema tag, entries, sha256) is the one the JAX

@@ -118,6 +118,11 @@ def group_size_for(
     return int(min(max(g, 1), int(max_group)))
 
 
+def auto_group_size(block_size: int) -> int:
+    """Occupancy heuristic at the default knobs (see ``group_size_for``)."""
+    return group_size_for(block_size)
+
+
 def even_group(count: int, group_size: int) -> tuple[int, int]:
     """(num_groups, slots per group) for ``count`` blocks at target G.
 

@@ -15,6 +15,7 @@ launch raises ``errors.KernelError``.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import pathlib
@@ -141,9 +142,17 @@ def check(code: int, what: str) -> None:
         raise errors.KernelError(f"{what}: CUDA error {code} ({msg})")
 
 
-def stream_ptr() -> int:
-    """PyTorch's current CUDA stream, as the integer the C interface takes."""
-    return torch.cuda.current_stream().cuda_stream
+@contextlib.contextmanager
+def launch_on(device: torch.device):
+    """Launch on ``device``, whichever device is current in the caller.
+
+    Makes ``device`` (the tensors' own) the current CUDA device for the
+    ``ctypes`` call and yields that device's current PyTorch stream, as the
+    integer the C interface takes. A call on tensors of ``cuda:1`` thus runs
+    on ``cuda:1``'s stream even while ``cuda:0`` is current.
+    """
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def require(t: torch.Tensor, name: str, *, dtype=None, shape=None, device=None,

@@ -51,9 +51,10 @@ def block_dense_spmv_batched(
     if dev.type != "cuda":
         return out.copy_(block_dense_spmv_plain(tiles, xg))
     lib = _build.library()
-    code = lib.cb_dense_spmv(
-        tiles.data_ptr(), xg.data_ptr(), out.data_ptr(), gd * G * B, B,
-        _build.DTYPE_CODES[tiles.dtype], _build.stream_ptr())
+    with _build.launch_on(dev) as stream:
+        code = lib.cb_dense_spmv(
+            tiles.data_ptr(), xg.data_ptr(), out.data_ptr(), gd * G * B, B,
+            _build.DTYPE_CODES[tiles.dtype], stream)
     _build.check(code, "cb_dense_spmv")
     block_dense_spmv_batched.launches += 1
     return out

@@ -70,9 +70,10 @@ def panel_spmv_batched(
     if dev.type != "cuda":
         return out.copy_(panel_spmv_plain(panels, xg))
     lib = _build.library()
-    code = lib.cb_panel_spmv(
-        panels.data_ptr(), xg.data_ptr(), out.data_ptr(), gp, B, W,
-        _build.DTYPE_CODES[panels.dtype], _build.stream_ptr())
+    with _build.launch_on(dev) as stream:
+        code = lib.cb_panel_spmv(
+            panels.data_ptr(), xg.data_ptr(), out.data_ptr(), gp, B, W,
+            _build.DTYPE_CODES[panels.dtype], stream)
     _build.check(code, "cb_panel_spmv")
     panel_spmv_batched.launches += 1
     return out

@@ -191,14 +191,16 @@ def segment_combine(y: torch.Tensor, parts: torch.Tensor, brow: torch.Tensor,
     scratch = (torch.empty((plan.num_scratch, R), dtype=torch.float32, device=dev)
                if plan.num_scratch else None)
     src = parts
-    for p in plan.passes:
-        code = lib.cb_segment_sum(
-            src.data_ptr(), None if p.perm is None else p.perm.data_ptr(), p.bounds.data_ptr(),
-            p.dst.data_ptr(), y.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            p.nchunks, R, y.shape[0], launch_positions(p.positions, R), _build.stream_ptr())
-        _build.check(code, "cb_segment_sum")
-        segment_combine.launches += 1
-        src = scratch
+    with _build.launch_on(dev) as stream:
+        for p in plan.passes:
+            code = lib.cb_segment_sum(
+                src.data_ptr(), None if p.perm is None else p.perm.data_ptr(),
+                p.bounds.data_ptr(), p.dst.data_ptr(), y.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                p.nchunks, R, y.shape[0], launch_positions(p.positions, R), stream)
+            _build.check(code, "cb_segment_sum")
+            segment_combine.launches += 1
+            src = scratch
     return y
 
 

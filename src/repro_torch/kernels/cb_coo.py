@@ -84,9 +84,10 @@ def coo_spmv_batched(
     if dev.type != "cuda":
         return out.copy_(coo_spmv_plain(codes, vals, xg, block_size=B))
     lib = _build.library()
-    code = lib.cb_coo_spmv(
-        codes.data_ptr(), vals.data_ptr(), xg.data_ptr(), out.data_ptr(), gc * S, B,
-        row_mask(B), _build.DTYPE_CODES[vals.dtype], _build.stream_ptr())
+    with _build.launch_on(dev) as stream:
+        code = lib.cb_coo_spmv(
+            codes.data_ptr(), vals.data_ptr(), xg.data_ptr(), out.data_ptr(), gc * S, B,
+            row_mask(B), _build.DTYPE_CODES[vals.dtype], stream)
     _build.check(code, "cb_coo_spmv")
     coo_spmv_batched.launches += 1
     return out

@@ -70,9 +70,10 @@ def super_tile_spmm(
     if B > MAX_BLOCK:
         raise errors.InvalidArgError(f"block size {B} > {MAX_BLOCK}: the kernel does not take it")
     lib = _build.library()
-    code = lib.cb_spmm(
-        tiles.data_ptr(), bcol.data_ptr(), Xb.data_ptr(), out.data_ptr(), gt * Gt, B, N,
-        _build.DTYPE_CODES[tiles.dtype], _build.DTYPE_CODES[Xb.dtype], _build.stream_ptr())
+    with _build.launch_on(dev) as stream:
+        code = lib.cb_spmm(
+            tiles.data_ptr(), bcol.data_ptr(), Xb.data_ptr(), out.data_ptr(), gt * Gt, B, N,
+            _build.DTYPE_CODES[tiles.dtype], _build.DTYPE_CODES[Xb.dtype], stream)
     _build.check(code, "cb_spmm")
     super_tile_spmm.launches += 1
     return out

@@ -26,6 +26,11 @@ raises ``errors.DeviceUnavailableError``. With ``impl="cuda"`` and CUDA
 tensors the kernels are launched, or the call raises — there is no
 fallback; with CPU tensors each kernel wrapper takes its plain PyTorch
 version (how the CPU tests exercise this module).
+
+After a successful dispatch each entry point records its launch
+accounting (``repro.ops.{spmv,spmv_into,spmm}.*``, the JAX package's
+metric names) in ``repro_torch.obs``; with obs disabled that is one
+boolean check, and results are bit-identical either way.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch import errors
+from repro_torch import errors, obs
 from repro_torch.core.streams import (
     LANE, SUBLANE, SpMVStreams, SuperBlockStreams, SuperTileStream, TileStream,
     even_group, resolve_device, spmm_block_n,
@@ -189,6 +194,8 @@ class _Prepared:
     sup: SuperBlockStreams
     brow: torch.Tensor                          # (T,) int32, dense|panel|coo slots
     combine: cb_combine.CombinePlan | None      # fixed summation order (CUDA only)
+    stats: dict                                 # spmv_launch_stats, for _record_call
+    records: dict = dataclasses.field(default_factory=dict)   # _record_call's batches
 
 
 def _prepare(streams, group_size) -> _Prepared:
@@ -206,7 +213,8 @@ def _prepare(streams, group_size) -> _Prepared:
                           sup.coo_brow.reshape(-1)])
         plan = (cb_combine.plan_combine(brow, brow.device)
                 if brow.device.type == "cuda" and brow.numel() else None)
-        cache[key] = _Prepared(sup=sup, brow=brow, combine=plan)
+        cache[key] = _Prepared(sup=sup, brow=brow, combine=plan,
+                               stats=spmv_launch_stats(streams, key))
     return cache[key]
 
 
@@ -254,15 +262,77 @@ def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tens
     return cb_combine.segment_combine(y, parts, prep.brow, B, prep.combine)
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with a CUDA device's missing index read as the current device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _check_impl_device(streams, impl, device) -> None:
-    """``impl`` is known and ``streams`` live where the call runs."""
+    """``impl`` is known and ``streams`` live on the very device the call
+    runs on (``cuda:1`` streams do not pass for a ``cuda:0`` call)."""
     if impl not in ("cuda", "reference"):
         raise errors.InvalidArgError(f"unknown impl {impl!r}")
-    dev = resolve_device(device)
-    if streams.device.type != dev.type:
+    dev = _indexed(resolve_device(device))
+    if _indexed(streams.device) != dev:
         raise errors.InvalidArgError(
             f"streams live on {streams.device} but the call runs on {dev}; "
-            f"move them first with streams.to({dev.type!r})")
+            f"move them first with streams.to({str(dev)!r})")
+
+
+def _call_batch(entry: str, stats: dict | None, impl: str, plan) -> obs.Batch:
+    """One call's launch accounting, as registry updates.
+
+    Every call counts ``calls{impl}``; only the CUDA engine launches kernels,
+    so ``launches`` / ``steps`` / ``padded_elems`` per format and the
+    ``group_size`` gauge are recorded for ``impl="cuda"`` alone (the JAX
+    package records them for ``"pallas"``). With a plan carrying a
+    ``structure_hash`` an SpMV also records the ``repro.autotune.exec.*``
+    measured-vs-predicted pair: both sides accumulate once per call, so their
+    ratio is the cost model's per-call fidelity.
+    """
+    batch = obs.Batch().inc(f"repro.ops.{entry}.calls", impl=impl)
+    if impl != "cuda":
+        return batch
+    for fmt, n in stats["steps"].items():
+        if n:
+            batch.inc(f"repro.ops.{entry}.launches", stats["launches"][fmt], format=fmt)
+            batch.inc(f"repro.ops.{entry}.steps", n, format=fmt)
+            batch.inc(f"repro.ops.{entry}.padded_elems", stats["padded"][fmt], format=fmt)
+    batch.set(f"repro.ops.{entry}.group_size", stats["group_size"])
+    label = getattr(plan, "structure_hash", None)
+    if label is not None and entry in ("spmv", "spmv_into"):
+        label = label[:12]
+        batch.inc("repro.autotune.exec.calls", plan=label)
+        for what, measured, predicted in (
+                ("padded_elems", stats["padded_total"], plan.predicted_padded_elems),
+                ("steps", stats["steps_total"], plan.predicted_steps)):
+            batch.inc(f"repro.autotune.exec.{what}", measured, plan=label, kind="measured")
+            batch.inc(f"repro.autotune.exec.{what}", predicted, plan=label, kind="predicted")
+    return batch
+
+
+def _record_call(entry: str, stats: dict | None, impl: str, plan,
+                 cache: dict | None = None) -> None:
+    """Emit one call's launch accounting (``_call_batch``) to the default registry.
+
+    Runs on the host after a successful dispatch and reads shape metadata
+    only (``stats`` is ``spmv_launch_stats`` / ``spmm_launch_stats``). The
+    batch depends on the stream's shapes and the plan's predictions alone,
+    so ``cb_spmv`` keeps it in the stream's prepared state (``cache``) and a
+    call pays one locked update of its series, not a lookup and a label sort
+    per instrument.
+    """
+    if cache is None:
+        _call_batch(entry, stats, impl, plan).record()
+        return
+    key = (entry, impl, getattr(plan, "structure_hash", None),
+           getattr(plan, "predicted_padded_elems", None), getattr(plan, "predicted_steps", None))
+    batch = cache.get(key)
+    if batch is None:
+        batch = cache[key] = _call_batch(entry, stats, impl, plan)
+    batch.record()
 
 
 def _enter(streams, x, impl, group_size, plan, device):
@@ -306,17 +376,21 @@ def cb_spmv(
     results are always checked against math that never touched the
     batching code.
 
-    The regrouped layout and the combine's fixed summation order are
-    derived on the first call and cached on the stream object. Two calls
-    with the same inputs return the same bits.
+    The regrouped layout, the combine's fixed summation order and the
+    launch accounting are derived on the first call and cached on the
+    stream object. Two calls with the same inputs return the same bits.
     """
     x, group_size = _enter(streams, x, impl, group_size, plan, device)
     if impl == "reference":
-        if isinstance(streams, SuperBlockStreams):
-            return ref.super_spmv(streams, x)
-        return ref.cb_spmv(streams, x)
-    y = torch.zeros(streams.m, dtype=torch.float32, device=x.device)
-    return _accumulate(y, _prepare(streams, group_size), x)
+        sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
+        y, stats, cache = sub(streams, x), None, None
+    else:
+        prep = _prepare(streams, group_size)
+        y = _accumulate(torch.zeros(streams.m, dtype=torch.float32, device=x.device), prep, x)
+        stats, cache = prep.stats, prep.records
+    if obs.is_enabled():
+        _record_call("spmv", stats, impl, plan, cache)
+    return y
 
 
 def cb_spmv_into(
@@ -345,11 +419,18 @@ def cb_spmv_into(
             f"{tuple(y_acc.shape)} on {y_acc.device}")
     if impl == "reference":
         sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
-        return y_acc.add_(sub(streams, x))
-    if y_acc.dtype != torch.float32 or not y_acc.is_contiguous():
-        raise errors.InvalidArgError(
-            "y_acc must be a contiguous float32 tensor for impl='cuda'")
-    return _accumulate(y_acc, _prepare(streams, group_size), x)
+        y_acc.add_(sub(streams, x))
+        stats, cache = None, None
+    else:
+        if y_acc.dtype != torch.float32 or not y_acc.is_contiguous():
+            raise errors.InvalidArgError(
+                "y_acc must be a contiguous float32 tensor for impl='cuda'")
+        prep = _prepare(streams, group_size)
+        _accumulate(y_acc, prep, x)
+        stats, cache = prep.stats, prep.records
+    if obs.is_enabled():
+        _record_call("spmv_into", stats, impl, plan, cache)
+    return y_acc
 
 
 # ---------------------------------------------------------------------------
@@ -533,9 +614,13 @@ def cb_spmm(
         raise errors.InvalidArgError(
             f"X has shape {tuple(X.shape)}, expected ({stream.n}, N)")
     if impl == "reference":
-        if isinstance(stream, SuperTileStream):
-            return ref.super_spmm(stream, X)
-        return ref.cb_spmm(stream, X)
-    sup, route = _prepare_tiles(stream, group_size)
-    B = sup.block_size
-    return spmm_routed(route, sup.tiles.reshape(-1, B, B), x_blocks(X, sup.nb, B), sup.m)
+        sub = ref.super_spmm if isinstance(stream, SuperTileStream) else ref.cb_spmm
+        Y = sub(stream, X)
+    else:
+        sup, route = _prepare_tiles(stream, group_size)
+        B = sup.block_size
+        Y = spmm_routed(route, sup.tiles.reshape(-1, B, B), x_blocks(X, sup.nb, B), sup.m)
+    if obs.is_enabled():
+        _record_call("spmm", None if impl == "reference" else spmm_launch_stats(
+            stream, group_size, n_cols=int(X.shape[1]), block_n=block_n), impl, plan)
+    return Y

@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from repro_torch import errors
+from repro_torch import errors, obs
 from repro_torch.errors import SolverStatus
 
 from ._loop import while_loop
@@ -479,7 +479,9 @@ def robust_solve(
     """Breakdown-aware supervisor: CG -> BiCGStab -> GMRES(m) with bounded retry.
 
     A host-level supervisor over the solvers; only the attempt
-    accounting runs on the host. Policy per attempt:
+    accounting runs on the host, and each attempt is an ``obs`` span
+    (``solve:<name>`` inside ``robust_solve``) and a bump of the
+    ``repro.solvers.robust.*`` counters. Policy per attempt:
 
       * every attempt warm-starts from the **best iterate seen so far**
         (restart-from-best), falling back to ``x0`` / zero;
@@ -512,9 +514,9 @@ def robust_solve(
             f"{sorted(_CHAIN_SOLVERS)}"
         )
 
-    ladder = [(name, M) for name in methods]
+    ladder = [(name, M, False) for name in methods]
     if fallback_preconditioner is not None:
-        ladder += [(name, fallback_preconditioner) for name in methods]
+        ladder += [(name, fallback_preconditioner, True) for name in methods]
     if max_attempts is not None:
         ladder = ladder[:max_attempts]
     if not ladder:
@@ -523,44 +525,71 @@ def robust_solve(
     gmres_cycles = max(1, math.ceil(maxiter / restart))
     common = dict(tol=tol, impl=impl, divtol=divtol)
 
+    # Attempt-ladder telemetry (repro.solvers.robust.*): each attempt is
+    # one span + one labeled counter bump, so a fleet can alarm on
+    # fallback rates without scraping Attempt tuples.
+    reg = obs.registry()
+    reg.counter("repro.solvers.robust.calls").inc()
+    if sanitized:
+        reg.counter("repro.solvers.robust.sanitized_x0").inc()
+
     attempts: list[Attempt] = []
     best_x, best_rnorm = x0, float("inf")
     best_attempt: tuple[str, SolveResult] | None = None
     res = None
     name = methods[0]
-    for name, Mi in ladder:
-        solver = _CHAIN_SOLVERS[name]
-        if name == "gmres":
-            res = solver(A, b, Mi, x0=best_x, maxiter=gmres_cycles,
-                         restart=restart, **common)
-        else:
-            res = solver(A, b, Mi, x0=best_x, maxiter=maxiter,
-                         stall_limit=stall_limit, **common)
-        status = int(res.status)
-        rnorm = float(res.residual)
-        attempts.append(Attempt(
-            solver=name, preconditioned=Mi is not None, status=status,
-            reason=errors.solver_reason(status),
-            converged=bool(res.converged),
-            iterations=int(res.iterations), residual=rnorm,
-        ))
-        if math.isfinite(rnorm) and rnorm < best_rnorm:
-            best_rnorm, best_x = rnorm, res.x
-            best_attempt = (name, res)
-        if status == SolverStatus.OK:
-            return RobustSolveResult(
-                x=res.x, converged=True, status=SolverStatus.OK,
-                reason=errors.solver_reason(SolverStatus.OK), solver=name,
-                residual=rnorm, attempts=tuple(attempts), result=res,
-                sanitized_x0=sanitized,
-            )
+    with obs.span("robust_solve", n=int(b.shape[0]),
+                  methods=",".join(methods)) as root:
+        for name, Mi, escalated in ladder:
+            solver = _CHAIN_SOLVERS[name]
+            with obs.span(f"solve:{name}", solver=name,
+                          preconditioned=Mi is not None,
+                          escalated=escalated) as sp:
+                if name == "gmres":
+                    res = solver(A, b, Mi, x0=best_x, maxiter=gmres_cycles,
+                                 restart=restart, **common)
+                else:
+                    res = solver(A, b, Mi, x0=best_x, maxiter=maxiter,
+                                 stall_limit=stall_limit, **common)
+                status = int(res.status)
+                rnorm = float(res.residual)
+                sp.set(status=errors.solver_reason(status),
+                       iterations=int(res.iterations))
+            attempts.append(Attempt(
+                solver=name, preconditioned=Mi is not None, status=status,
+                reason=errors.solver_reason(status),
+                converged=bool(res.converged),
+                iterations=int(res.iterations), residual=rnorm,
+            ))
+            reg.counter("repro.solvers.robust.attempts").inc(
+                solver=name, reason=errors.solver_reason(status))
+            reg.counter("repro.solvers.robust.iterations").inc(
+                int(res.iterations), solver=name)
+            if math.isfinite(rnorm) and rnorm < best_rnorm:
+                best_rnorm, best_x = rnorm, res.x
+                best_attempt = (name, res)
+            if status == SolverStatus.OK:
+                root.set(outcome="converged", solver=name,
+                         attempts=len(attempts))
+                reg.counter("repro.solvers.robust.outcome").inc(
+                    outcome="converged", solver=name)
+                return RobustSolveResult(
+                    x=res.x, converged=True, status=SolverStatus.OK,
+                    reason=errors.solver_reason(SolverStatus.OK), solver=name,
+                    residual=rnorm, attempts=tuple(attempts), result=res,
+                    sanitized_x0=sanitized,
+                )
 
-    # chain exhausted: surface the best iterate with a typed verdict
-    final_name, final_res = best_attempt if best_attempt else (name, res)
-    status = int(attempts[-1].status)
-    return RobustSolveResult(
-        x=final_res.x, converged=False, status=status,
-        reason=errors.solver_reason(status), solver=final_name,
-        residual=float(final_res.residual), attempts=tuple(attempts),
-        result=final_res, sanitized_x0=sanitized,
-    )
+        # chain exhausted: surface the best iterate with a typed verdict
+        final_name, final_res = best_attempt if best_attempt else (name, res)
+        status = int(attempts[-1].status)
+        root.set(outcome="exhausted", solver=final_name,
+                 attempts=len(attempts))
+        reg.counter("repro.solvers.robust.outcome").inc(
+            outcome="exhausted", solver=final_name)
+        return RobustSolveResult(
+            x=final_res.x, converged=False, status=status,
+            reason=errors.solver_reason(status), solver=final_name,
+            residual=float(final_res.residual), attempts=tuple(attempts),
+            result=final_res, sanitized_x0=sanitized,
+        )

@@ -62,7 +62,7 @@ class CBLinearOperator:
     streams: SuperBlockStreams
     streams_T: SuperBlockStreams | None = None
     tiles: SuperTileStream | None = None
-    plan: object | None = None       # always None until the autotune slice
+    plan: object | None = None       # the Plan that shaped the streams
     # Value-scatter updaters recorded at build time (``updatable=True``);
     # ``with_values`` copies share them object for object.
     updater: SuperStreamUpdater | None = None
@@ -79,6 +79,8 @@ class CBLinearOperator:
         with_rmatvec: bool = False,
         with_matmat: bool = False,
         plan: object | None = None,
+        plan_cache=None,
+        plan_settings=None,
         updatable: bool = False,
         device=None,
     ) -> "CBLinearOperator":
@@ -98,14 +100,39 @@ class CBLinearOperator:
         ``None`` means CUDA (``errors.DeviceUnavailableError`` where there
         is none), ``"cpu"`` the CPU.
 
-        ``plan`` hooks in the autotuner, which the port does not have yet:
-        passing a plan raises ``errors.InvalidArgError``.
+        ``plan`` hooks in the autotune subsystem, and since the operator
+        IS the amortization regime (thousands of applications of one
+        matrix), construction is where planning pays for itself:
+
+          * ``None`` — keep ``cb``'s configuration as built (default);
+          * ``"auto"`` — run ``CBMatrix.plan_for`` on ``cb``'s triplets on
+            the operator's ``device`` (consulting ``plan_cache`` when
+            given, searching with ``plan_settings`` — e.g.
+            ``SearchSettings(mode="heuristic")`` to stay deterministic on
+            the card, where ``"auto"`` times the candidates) and rebuild
+            the CB structure with the winning configuration;
+          * a ``Plan`` — apply that plan's configuration directly.
+
+        A tuned plan owns the group-size decision, so combining ``plan``
+        with an explicit ``group_size`` is an error. The plan rides on
+        the operator and on every ``matvec``, where ``obs`` records its
+        measured-vs-predicted launch accounting.
         """
-        if plan is not None:
-            raise errors.InvalidArgError(
-                "plan= needs the autotune slice (ROADMAP queue A item 7), which "
-                "the port does not have yet; build without a plan")
         dev = resolve_device(device)
+        if plan is not None:
+            if group_size is not None:
+                raise errors.InvalidArgError(
+                    "pass either plan= or group_size=, not both — a plan "
+                    "carries its own group size")
+            rows, cols, vals = cb.to_coo()
+            if isinstance(plan, str):
+                if plan != "auto":
+                    raise errors.InvalidArgError(f"unknown plan mode {plan!r}")
+                plan = CBMatrix.plan_for(
+                    rows, cols, vals, cb.shape, val_dtype=cb.val_dtype,
+                    cache=plan_cache, settings=plan_settings, device=dev)
+            cb = CBMatrix.from_plan(rows, cols, vals, cb.shape, plan)
+            group_size = plan.group_size
         streams_T = (build_transposed_super_streams(cb, group_size=group_size)
                      if with_rmatvec else None)
         tiles = (super_tile_stream_from_cb(cb, group_size=group_size)
@@ -117,6 +144,7 @@ class CBLinearOperator:
             streams=build_super_streams(cb, group_size=group_size).to(dev),
             streams_T=_to(streams_T, dev),
             tiles=_to(tiles, dev),
+            plan=plan,
             updater=(super_stream_updater(cb, group_size=group_size).to(dev)
                      if updatable else None),
             updater_T=(transposed_super_stream_updater(cb, group_size=group_size).to(dev)
@@ -187,12 +215,13 @@ class CBLinearOperator:
 
     def matvec(self, x: torch.Tensor, *, impl: str = "cuda") -> torch.Tensor:
         """``A @ x`` — x: (n,) -> (m,)."""
-        return ops.cb_spmv(self.streams, x, impl=impl, device=self.device)
+        return ops.cb_spmv(self.streams, x, impl=impl, plan=self.plan, device=self.device)
 
     def matvec_into(self, y_acc: torch.Tensor, x: torch.Tensor, *,
                     impl: str = "cuda") -> torch.Tensor:
         """``y_acc += A @ x`` in place (``ops.cb_spmv_into``); returns ``y_acc``."""
-        return ops.cb_spmv_into(y_acc, self.streams, x, impl=impl, device=self.device)
+        return ops.cb_spmv_into(y_acc, self.streams, x, impl=impl, plan=self.plan,
+                                device=self.device)
 
     def rmatvec(self, y: torch.Tensor, *, impl: str = "cuda") -> torch.Tensor:
         """``A^T @ y`` — y: (m,) -> (n,) via the precomputed transpose."""

@@ -1,0 +1,261 @@
+"""The port's tests that need a CUDA device, in a file that imports neither
+``jax`` nor ``repro``, so that a GPU machine without JAX collects them:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py tests/test_torch_combine.py
+
+Each case is the one of the parity file named beside it, its check
+unchanged; only the inputs are built here with the port alone
+(``repro_torch.data.matrices`` and the port's host pipeline, which the CPU
+parity tests hold bit-equal to the JAX package's), and the float64 oracle is
+the port's ``core.spmv_ref.dense_oracle``. Without a card every case skips.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import solvers as tsolvers
+from repro_torch.core import CBMatrix, dense_oracle
+from repro_torch.core import streams as tstreams
+from repro_torch.data import matrices
+from repro_torch.kernels import cb_block_dense as t_dense
+from repro_torch.kernels import cb_colagg as t_panel
+from repro_torch.kernels import cb_coo as t_coo
+from repro_torch.kernels import cb_spmm as t_spmm
+from repro_torch.kernels import ops as tops
+from repro_torch.sparse import linear as TL
+
+NO_CARD = ("needs a CUDA device: the kernels have no CPU mode "
+           "(run `python3 chip_smoke.py` on the GPU machine)")
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+
+
+# -- the conformance structures these cases use (tests/conformance/scenarios.py) --
+
+def _empty_rows_cols(seed):
+    rng = np.random.default_rng(seed)
+    m, n = 160, 144
+    live_rows = np.r_[np.arange(0, 24), np.arange(96, 120)]
+    live_cols = np.r_[np.arange(8, 40), np.arange(120, 136)]
+    rows, cols = rng.choice(live_rows, 220), rng.choice(live_cols, 220)
+    _, idx = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[idx], cols[idx]
+    return rows.astype(np.int64), cols.astype(np.int64), rng.standard_normal(len(rows)), (m, n)
+
+
+def _bucket_widths(seed):
+    rng = np.random.default_rng(seed)
+    m, n = 136, 128
+    rows_l, cols_l = [], []
+    for i, k in enumerate((1, 7, 8, 9, 15, 16, 17)):
+        csel = (np.arange(k) * 5 + i * 11) % n
+        for rr in np.arange(i * 18, min(i * 18 + 12, m))[::2]:
+            rows_l.append(np.full(len(csel), rr))
+            cols_l.append(csel)
+    rows, cols = np.concatenate(rows_l), np.concatenate(cols_l)
+    _, idx = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[idx], cols[idx]
+    return rows.astype(np.int64), cols.astype(np.int64), rng.standard_normal(len(rows)), (m, n)
+
+
+STRUCTURES = {
+    "power_law": lambda seed: (*matrices.power_law(144, 144, seed=seed), (144, 144)),
+    "banded": lambda seed: (*matrices.banded(160, 128, seed=seed), (160, 128)),
+    "block_clustered": lambda seed: (*matrices.block_clustered(144, 120, seed=seed), (144, 120)),
+    "empty_rows_cols": _empty_rows_cols,
+    "bucket_widths": _bucket_widths,
+}
+
+
+def _scenario(structure, B, colagg="auto", seed=11):
+    """(triplets, shape, CBMatrix) of a conformance scenario, float32."""
+    rows, cols, vals, shape = STRUCTURES[structure](seed)
+    vals = vals.astype(np.float32)
+    cb = CBMatrix.from_coo(rows, cols, vals, shape, block_size=B, val_dtype=np.float32,
+                           use_column_aggregation=colagg)
+    return (rows, cols, vals), shape, cb
+
+
+# -- tests/test_torch_kernels.py: the three SpMV kernels ----------------------------
+
+def _integer_streams(cb, G):
+    """Packed streams with small integer payloads (every sum exact in float32)
+    and an integer x, drawn as the parity file draws them."""
+    s = tstreams.build_super_streams(cb, group_size=G)
+    rng = np.random.default_rng(0)
+
+    def ints(t):
+        a = t.numpy()
+        return torch.from_numpy(np.where(a != 0, rng.integers(1, 8, a.shape), 0).astype(a.dtype))
+    s = dataclasses.replace(s, dense_tiles=ints(s.dense_tiles), panel_vals=ints(s.panel_vals),
+                            coo_vals=ints(s.coo_vals))
+    x = np.random.default_rng(4).integers(-4, 5, s.n).astype(np.float32)
+    return s, x
+
+
+KERNEL_CASES = [(("block_clustered", 16), 4), (("block_clustered", 24), 7),
+                (("bucket_widths", 8, True), 4), (("banded", 24), 7),
+                (("power_law", 24), 4), (("empty_rows_cols", 16), 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scn,G", KERNEL_CASES,
+                         ids=[f"{s[0]}-B{s[1]}-G{g}" for s, g in KERNEL_CASES])
+def test_cuda_kernels_vs_plain_on_the_card(scn, G):
+    """The CUDA kernels against their plain versions (test_torch_kernels.py)."""
+    _need_card()
+    _, _, cb = _scenario(*scn)
+    ts, x = _integer_streams(cb, G)
+    s, x = ts.to("cuda"), torch.from_numpy(x).cuda()
+    B = s.block_size
+    if s.num_dense_groups:
+        xg = x[s.dense_xidx.long()]
+        assert torch.equal(t_dense.block_dense_spmv_batched(s.dense_tiles, xg),
+                           t_dense.block_dense_spmv_plain(s.dense_tiles, xg))
+    if s.num_panel_groups:
+        xg = x[s.panel_xidx.long()]
+        assert torch.equal(t_panel.panel_spmv_batched(s.panel_vals, xg),
+                           t_panel.panel_spmv_plain(s.panel_vals, xg))
+    if s.num_coo_groups:
+        xg = x[s.coo_xidx.long()]
+        assert torch.equal(
+            t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, xg, block_size=B),
+            t_coo.coo_spmv_plain(s.coo_codes, s.coo_vals, xg, block_size=B))
+
+
+# -- tests/test_torch_spmv.py: cb_spmv end to end -------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_path_bit_equal_runs_on_the_card():
+    """impl='cuda' on the card: right, and the same bits twice."""
+    _need_card()
+    (rows, cols, vals), shape, cb = _scenario("block_clustered", 16)
+    s = tstreams.build_super_streams(cb).to()
+    x = np.random.default_rng(3).standard_normal(shape[1]).astype(np.float32)
+    y = tops.cb_spmv(s, x)
+    assert y.is_cuda and torch.equal(y, tops.cb_spmv(s, x))
+    np.testing.assert_allclose(y.cpu().numpy(), dense_oracle(rows, cols, vals, shape, x),
+                               rtol=3e-4, atol=3e-4)
+
+
+# -- tests/test_torch_spmm.py: the SpMM kernel ------------------------------------------
+
+# (B, Gt, groups, nb, N, tile dtype, X dtype, X offset): the plain cases, then
+# the tensor-core kernel at B not a multiple of 16 or of 8, N past its
+# 2048-column block, X a view one element past an aligned base (4-byte
+# copies), and the solver's multi-RHS shape (one warp per slot, many groups)
+SPMM_CASES = [
+    (8, 4, 3, 5, 20, "float32", "float32", 0),
+    (16, 1, 5, 4, 1, "float32", "float32", 0),
+    (24, 16, 2, 3, 100, "bfloat16", "float32", 0),
+    (16, 4, 2, 6, 129, "float64", "bfloat16", 0),
+    (128, 1, 1, 2, 129, "float32", "float32", 0),
+    (128, 2, 1, 2, 20, "bfloat16", "bfloat16", 0),
+    (64, 2, 3, 4, 129, "float32", "float32", 0),
+    (100, 2, 3, 4, 20, "bfloat16", "float32", 0),
+    (128, 1, 2, 3, 1025, "float32", "float32", 0),
+    (128, 1, 2, 3, 2049, "float64", "bfloat16", 0),
+    (128, 2, 2, 3, 20, "float32", "float32", 1),
+    (16, 1, 3, 4, 20, "float32", "float32", 1),
+    (16, 16, 200, 300, 16, "float32", "float32", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPMM_CASES, ids=[f"B{c[0]}-G{c[1]}-N{c[4]}"
+                                                  + (f"-offset{c[7]}" if c[7] else "")
+                                                  for c in SPMM_CASES])
+def test_cuda_kernel_vs_plain_on_the_card(case):
+    """The CUDA kernel against its plain version (test_torch_spmm.py): integer
+    data bit for bit, normal data within 1e-4 of the largest value
+    (``chip_smoke.py``'s ``KERNEL_TOL``)."""
+    _need_card()
+    B, Gt, gt, nb, N, tdt, xdt, off = case
+    g = torch.Generator().manual_seed(B)
+    for integer in (True, False):
+        def draw(shape):
+            return (torch.randint(-4, 5, shape, generator=g).float() if integer
+                    else torch.randn(shape, generator=g))
+        tiles = draw((gt, Gt * B, B)).to(getattr(torch, tdt)).cuda()
+        bcol = torch.randint(0, nb, (gt, Gt), generator=g).to(torch.int32).cuda()
+        Xb = draw((nb * B * N + off,)).to(getattr(torch, xdt)).cuda()[off:].view(nb, B, N)
+        got = t_spmm.super_tile_spmm(tiles, bcol, Xb)
+        want = t_spmm.super_tile_spmm_plain(tiles, bcol, Xb)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            err = float((got - want).abs().max())
+            assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+# -- tests/test_torch_sparse_linear.py: the sparse layer ----------------------------------
+
+@pytest.mark.cuda
+def test_layer_on_the_card_matches_reference():
+    """Forward and both gradients through the CUDA kernel against the plain
+    reference layer, and the same bits twice (test_torch_sparse_linear.py)."""
+    _need_card()
+    spec = TL.cb_spec_random(512, 384, block_size=128, keep_fraction=0.25, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tiles = TL.cb_tiles_init(g, spec)["tiles"]
+    x = torch.randn(64, 512, device="cuda", generator=g)
+    outs = []
+    for impl in ("cuda", "cuda", "reference"):
+        t, xx = tiles.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        y = TL.cb_linear_apply({"tiles": t}, spec, xx, impl=impl)
+        y.square().sum().backward()
+        outs.append((y.detach(), xx.grad, t.grad))
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0], outs[2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- tests/test_torch_solvers.py: a solver on the kernels ---------------------------------
+
+@pytest.mark.cuda
+def test_solvers_on_the_card_match_the_reference():
+    """CG with the CUDA kernels: the reference's iterations, and the same
+    bits twice (test_torch_solvers.py)."""
+    _need_card()
+    rows, cols, vals = matrices.spd_banded(96, bandwidth=7, seed=3)
+    tcb = CBMatrix.from_coo(rows, cols, vals.astype(np.float32), (96, 96), block_size=16,
+                            val_dtype=np.float32)
+    op = tsolvers.CBLinearOperator.from_cb(tcb)
+    M = tsolvers.block_jacobi(tcb)
+    b = np.random.default_rng(0).standard_normal(96).astype(np.float32)
+    res = tsolvers.cg(op, b, M, tol=1e-6, maxiter=500)
+    ref = tsolvers.cg(op, b, M, tol=1e-6, maxiter=500, impl="reference")
+    assert res.x.is_cuda and bool(res.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    assert torch.equal(res.x, tsolvers.cg(op, b, M, tol=1e-6, maxiter=500).x)
+
+
+# -- plans on the card -----------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_timed_plan_search_runs_the_kernels_on_the_card():
+    """``mode="timed"`` times ``cb_spmv(impl="cuda")`` on the card: the wrappers'
+    counters move, the plan records its time, and the planned call agrees
+    with the float64 oracle and repeats bit for bit."""
+    _need_card()
+    from repro_torch.autotune import SearchSettings
+
+    (rows, cols, vals), shape, _ = _scenario("power_law", 16)
+    before = t_coo.coo_spmv_batched.launches + t_panel.panel_spmv_batched.launches
+    plan = CBMatrix.plan_for(rows, cols, vals, shape,
+                             settings=SearchSettings(mode="timed", timing_reps=3))
+    assert plan.mode == "timed" and plan.t_spmv > 0
+    assert t_coo.coo_spmv_batched.launches + t_panel.panel_spmv_batched.launches > before
+    cb = CBMatrix.from_plan(rows, cols, vals, shape, plan)
+    s = tstreams.build_super_streams(cb, group_size=plan.group_size).to()
+    x = np.random.default_rng(3).standard_normal(shape[1]).astype(np.float32)
+    y = tops.cb_spmv(s, x, plan=plan)
+    assert torch.equal(y, tops.cb_spmv(s, x, plan=plan))
+    np.testing.assert_allclose(y.cpu().numpy(), dense_oracle(rows, cols, vals, shape, x),
+                               rtol=3e-4, atol=3e-4)

@@ -352,6 +352,14 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not banned, f"{path} imports {sorted(banned)}"
 
 
+def test_card_tests_import_neither_jax_nor_repro():
+    """A GPU machine without JAX collects every ``cuda`` test of the port:
+    the file that holds them reaches neither package, not even through the
+    parity helpers."""
+    banned = {"jax", "jaxlib", "repro", "torch_port", "conformance"}
+    assert not banned & _imported_roots(REPO / "tests" / "test_torch_card.py")
+
+
 def test_port_has_every_module_of_the_slice():
     have = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     for mod in ("errors.py", "core/formats.py", "core/blocking.py", "core/column_agg.py",
@@ -359,7 +367,10 @@ def test_port_has_every_module_of_the_slice():
                 "core/spmv_ref.py", "core/streams.py", "data/matrices.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/_build.py",
                 "kernels/cb_block_dense.py", "kernels/cb_colagg.py", "kernels/cb_coo.py",
-                "kernels/cb_combine.py"):
+                "kernels/cb_combine.py", "obs/__init__.py", "obs/metrics.py", "obs/spans.py",
+                "obs/locality.py", "autotune/__init__.py", "autotune/features.py",
+                "autotune/cost.py", "autotune/plan.py", "autotune/search.py",
+                "autotune/timing.py"):
         assert mod in have, mod
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu",
@@ -383,3 +394,28 @@ def test_cuda_request_without_a_card_raises():
             call()
         assert ei.value.code == terrors.DEVICE_UNAVAILABLE
     assert tstreams.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_a_call_runs_on_the_very_device_its_streams_live_on(monkeypatch):
+    """Streams on ``cuda:1`` are refused for a ``cuda:0`` call (and the other
+    way round), where comparing device types alone let them through; a
+    default ``"cuda"`` call reads the current device's index. The card is
+    faked: ``resolve_device`` and ``current_device`` are monkeypatched and
+    the streams are a stand-in carrying only ``.device``."""
+    import types
+
+    monkeypatch.setattr(tops, "resolve_device", lambda d=None: torch.device(
+        "cuda" if d is None else d))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    on = {i: types.SimpleNamespace(device=torch.device("cuda", i)) for i in (0, 1)}
+    for streams, device in ((on[1], "cuda:0"), (on[0], "cuda:1"), (on[1], None),
+                            (on[1], "cuda")):
+        with pytest.raises(terrors.InvalidArgError, match="move them first"):
+            tops._check_impl_device(streams, "cuda", device)
+    for streams, device in ((on[0], "cuda:0"), (on[0], None), (on[0], "cuda"),
+                            (on[1], "cuda:1")):
+        tops._check_impl_device(streams, "cuda", device)
+    cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    tops._check_impl_device(cpu, "reference", "cpu")
+    with pytest.raises(terrors.InvalidArgError):
+        tops._check_impl_device(cpu, "cuda", "cuda:0")

@@ -6,8 +6,8 @@ Tolerance 1e-5 (float32 sums of at most 24 products taken in another order);
 integer-valued data must agree bit for bit. On the CPU a wrapper takes its
 plain version, so these tests also cover the wrappers' checks. The CUDA
 kernels themselves are held against the same plain versions on the card by
-``chip_smoke.py``; the tests marked ``cuda`` do so under pytest where a card
-is present.
+``chip_smoke.py``, and under pytest by the ``cuda`` tests of
+``tests/test_torch_card.py``, which import no JAX.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -258,31 +258,3 @@ def test_empty_streams_launch_nothing_and_return_empty():
                                         block_size=16).shape) == (0, 0, 16)
     # the counters count CUDA launches only: none of this ran on a card
     assert t_dense.block_dense_spmv_batched.launches == before
-
-
-CUDA_CASES = DENSE_CASES[-2:] + PANEL_CASES[-2:] + COO_CASES[-2:]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("scn,G", CUDA_CASES, ids=_ids(CUDA_CASES))
-def test_cuda_kernels_vs_plain_on_the_card(scn, G):
-    """The CUDA kernels against their plain versions (needs a CUDA device and nvcc)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode "
-                    "(run `python3 chip_smoke.py` on the GPU machine)")
-    _, ts, x = _streams(scn, G, integer=True)
-    s, x = ts.to("cuda"), torch.from_numpy(x).cuda()
-    B = s.block_size
-    if s.num_dense_groups:
-        xg = x[s.dense_xidx.long()]
-        assert torch.equal(t_dense.block_dense_spmv_batched(s.dense_tiles, xg),
-                           t_dense.block_dense_spmv_plain(s.dense_tiles, xg))
-    if s.num_panel_groups:
-        xg = x[s.panel_xidx.long()]
-        assert torch.equal(t_panel.panel_spmv_batched(s.panel_vals, xg),
-                           t_panel.panel_spmv_plain(s.panel_vals, xg))
-    if s.num_coo_groups:
-        xg = x[s.coo_xidx.long()]
-        assert torch.equal(
-            t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, xg, block_size=B),
-            t_coo.coo_spmv_plain(s.coo_codes, s.coo_vals, xg, block_size=B))

@@ -22,6 +22,7 @@ import scipy.sparse.linalg as spla
 import torch
 
 from repro import solvers as jsolvers
+from repro.autotune import SearchSettings as JaxSettings
 from repro.core import streams as jstreams
 from repro.core.cb_matrix import CBMatrix as JaxCBMatrix
 from repro.data import matrices as jmatrices
@@ -323,9 +324,15 @@ def test_from_cb_defaults_to_cuda():
 
 
 def test_plan_waits_for_the_autotune_slice():
-    _, tcb, *_ = _spd_case()
-    with pytest.raises(errors.InvalidArgError, match="autotune"):
-        tsolvers.CBLinearOperator.from_cb(tcb, plan="auto", device="cpu")
+    """The autotune slice is in: ``plan="auto"`` plans on the operator's
+    device (heuristic on the CPU) and builds the reference's planned streams."""
+    jcb, tcb, *_ = _spd_case()
+    top = tsolvers.CBLinearOperator.from_cb(tcb, plan="auto", device="cpu")
+    jop = jsolvers.CBLinearOperator.from_cb(jcb, plan="auto", plan_settings=JaxSettings(mode="heuristic"))
+    assert top.plan.mode == "heuristic" and top.plan.to_json() == jop.plan.to_json()
+    assert_streams_equal(jop.streams, top.streams)
+    with pytest.raises(errors.InvalidArgError, match="not both"):
+        tsolvers.CBLinearOperator.from_cb(tcb, plan="auto", group_size=4, device="cpu")
 
 
 def test_operator_from_jax_streams_matches_from_cb():
@@ -781,24 +788,3 @@ def test_public_names_match_repro():
     tnames = {k for k in vars(tsolvers) if not k.startswith("_")} - {
         "operator", "krylov", "precond", "eigen"}
     assert jnames == tnames
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-def test_solvers_on_the_card_match_the_reference():
-    """CG and PageRank with the CUDA kernels: the reference's iterations,
-    and the same bits twice."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    _, tcb, *_ = _spd_case()
-    op = tsolvers.CBLinearOperator.from_cb(tcb)
-    M = tsolvers.block_jacobi(tcb)
-    b = _rhs(96, 0)
-    res = tsolvers.cg(op, b, M, tol=TOL, maxiter=500)
-    ref = tsolvers.cg(op, b, M, tol=TOL, maxiter=500, impl="reference")
-    assert res.x.is_cuda and bool(res.converged)
-    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
-    assert torch.equal(res.x, tsolvers.cg(op, b, M, tol=TOL, maxiter=500).x)

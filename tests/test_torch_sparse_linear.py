@@ -237,26 +237,3 @@ def test_entry_points_run_on_cuda_by_default():
                  lambda: TL.cb_linear_init(torch.Generator(), 32, 32, block_size=8)):
         with pytest.raises(terrors.DeviceUnavailableError):
             call()
-
-
-@pytest.mark.cuda
-def test_layer_on_the_card_matches_reference():
-    """Forward and both gradients through the CUDA kernel against the plain
-    reference layer, and the same bits twice (needs a CUDA device and nvcc)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode "
-                    "(run `python3 chip_smoke.py` on the GPU machine)")
-    spec = TL.cb_spec_random(512, 384, block_size=128, keep_fraction=0.25, seed=3)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    tiles = TL.cb_tiles_init(g, spec)["tiles"]
-    x = torch.randn(64, 512, device="cuda", generator=g)
-    outs = []
-    for impl in ("cuda", "cuda", "reference"):
-        t, xx = tiles.clone().requires_grad_(True), x.clone().requires_grad_(True)
-        y = TL.cb_linear_apply({"tiles": t}, spec, xx, impl=impl)
-        y.square().sum().backward()
-        outs.append((y.detach(), xx.grad, t.grad))
-    for a, b in zip(outs[0], outs[1]):
-        assert torch.equal(a, b)
-    for a, b in zip(outs[0], outs[2]):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -315,47 +315,3 @@ def test_cb_spmm_runs_on_cuda_by_default():
             tops.cb_spmm(ts, X)
         with pytest.raises(terrors.DeviceUnavailableError):
             ts.to()
-
-
-# (B, Gt, groups, nb, N, tile dtype, X dtype, X offset): the plain cases, then
-# the tensor-core kernel at B not a multiple of 16 or of 8, N past its
-# 2048-column block, X a view one element past an aligned base (4-byte
-# copies), and the solver's multi-RHS shape (one warp per slot, many groups)
-CUDA_CASES = [c + (0,) for c in PLAIN_CASES] + [
-    (64, 2, 3, 4, 129, "float32", "float32", 0),
-    (100, 2, 3, 4, 20, "bfloat16", "float32", 0),
-    (128, 1, 2, 3, 1025, "float32", "float32", 0),
-    (128, 1, 2, 3, 2049, "float64", "bfloat16", 0),
-    (128, 2, 2, 3, 20, "float32", "float32", 1),
-    (16, 1, 3, 4, 20, "float32", "float32", 1),
-    (16, 16, 200, 300, 16, "float32", "float32", 0),
-]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CUDA_CASES, ids=[f"B{c[0]}-G{c[1]}-N{c[4]}"
-                                                  + (f"-offset{c[7]}" if c[7] else "")
-                                                  for c in CUDA_CASES])
-def test_cuda_kernel_vs_plain_on_the_card(case):
-    """The CUDA kernel against its plain version (needs a CUDA device and
-    nvcc): integer data bit for bit, normal data within 1e-4 of the largest
-    value (``chip_smoke.py``'s ``KERNEL_TOL``)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
-                    "(run `python3 chip_smoke.py` on the GPU machine)")
-    B, Gt, gt, nb, N, tdt, xdt, off = case
-    g = torch.Generator().manual_seed(B)
-    for integer in (True, False):
-        def draw(shape):
-            return (torch.randint(-4, 5, shape, generator=g).float() if integer
-                    else torch.randn(shape, generator=g))
-        tiles = draw((gt, Gt * B, B)).to(getattr(torch, tdt)).cuda()
-        bcol = torch.randint(0, nb, (gt, Gt), generator=g).to(torch.int32).cuda()
-        Xb = draw((nb * B * N + off,)).to(getattr(torch, xdt)).cuda()[off:].view(nb, B, N)
-        got = t_spmm.super_tile_spmm(tiles, bcol, Xb)
-        want = t_spmm.super_tile_spmm_plain(tiles, bcol, Xb)
-        if integer:
-            assert torch.equal(got, want)
-        else:
-            err = float((got - want).abs().max())
-            assert err <= 1e-4 * max(1.0, float(want.abs().max())), err

@@ -251,20 +251,3 @@ def test_streams_on_the_wrong_device_are_refused():
     else:
         with pytest.raises(terrors.DeviceUnavailableError):
             tops.cb_spmv(ts, _x(ts.n))
-
-
-@pytest.mark.cuda
-def test_cuda_path_bit_equal_runs_on_the_card():
-    """impl='cuda' on the card: right, and the same bits twice."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode "
-                    "(run `python3 chip_smoke.py` on the GPU machine)")
-    scn = tp.Scenario("block_clustered", 16)
-    rows, cols, vals, shape = scn.build_coo()
-    s = tstreams.build_super_streams(tp.torch_cb(scn)).to()
-    x = _x(shape[1])
-    y = tops.cb_spmv(s, x)
-    assert y.is_cuda and torch.equal(y, tops.cb_spmv(s, x))
-    np.testing.assert_allclose(y.cpu().numpy(),
-                               dense_oracle(rows, cols, vals.astype(np.float32), shape, x),
-                               rtol=3e-4, atol=3e-4)
