@@ -96,10 +96,32 @@ the ``nvidia-smi`` line):
    ``down``, mean squared error, ``backward()``, SGD. Held against the same
    step in float64 with dense masked weights, two steps bit-equal; the dense
    ``torch.matmul`` step (TF32 off and on) is the yardstick.
-9. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+9. ``serve`` — the ``cb-paper`` model (granite-8b at full width: d_model 4096,
+   32 heads, 8 KV heads, d_ff 14336, vocab 49152, all 36 layers, CB-sparse
+   SwiGLU at B = 128 and keep 0.25, bfloat16 activations, float32 weights from
+   a seeded CUDA generator, about 14 GB) built by ``repro_torch.models.Model``
+   on the card and served through ``repro_torch.serving.ServingEngine`` with
+   ``launch/serve``'s traffic: 8 requests, prompts of 2-11 tokens from
+   ``np.random.default_rng(0)``, 16 new tokens each, 4 slots, ``max_len`` 256.
+   The launch counters are zeroed before and read after the first run (and
+   obs's ``repro.ops.spmm.launches`` held to the wrapper's); a second run must
+   generate the same tokens. Each tick runs between CUDA events
+   (``tick_ms``, the median); ``tick_enqueue_ms`` is the host's time to enqueue
+   one ``decode_step`` and ``device_tick_ms`` the same step captured in a CUDA
+   graph and replayed; ``bound_ms`` is the bytes a tick must move (the float32
+   weights, the gathered embedding rows, the KV cache) over 3.35 TB/s. Checks:
+   one tick's logits on ``impl="cuda"`` against ``impl="reference"``
+   (``SERVE_IMPL_TOL``), teacher-forced ``decode_step`` against ``forward`` at
+   float32 with two layers (``DECODE_TOL``, the reference's check), and the
+   spmm kernel and the combine against their plain versions at the decode
+   shape (tiles (896, 128, 128), N = 4, X bfloat16 as the path passes it, gate
+   and down). One layer's MLP at that shape is timed through the port and
+   through ``torch.matmul`` of its dense weights (float32 and bfloat16), a
+   yardstick.
+10. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
-   runs, one training step, summed; ``launches_per_call`` has them apart, keyed by the counted run,
-   the solver runs per iteration), worst error seen,
+   runs, one training step, the first served run, summed; ``launches_per_call`` has them
+   apart, keyed by the counted run, the solver runs per iteration, the served run per tick), worst error seen,
    time (and the host's time to enqueue one call, ``enqueue_ms``: where it
    is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over the rate of the
@@ -107,7 +129,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-10. the ``nvidia-smi`` name and power limit, then the verdict line.
+11. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -115,7 +137,9 @@ with CUDA events over warm, back-to-back calls (see ``time_ms``).
 ``torch.sparse``, ``torch.einsum``, ``index_add_`` and the dense
 ``torch.matmul`` appear here as yardsticks only, and ``torch.bmm`` as one too
 except in the sparse layer's dW, which the JAX package also leaves outside
-any kernel; the port's CUDA path calls none of the others. Float32 matrix
+any kernel; the port's CUDA path calls none of the others, but for the
+served model's dense projections, attention and norms (``torch.einsum`` /
+``matmul`` and elementwise ops), which the JAX package leaves to XLA too. Float32 matrix
 products run in full float32 (``allow_tf32`` is set False) unless a line
 says otherwise. The sizes
 are fixed: the script has no rehearsal mode, so its verdict line always
@@ -152,6 +176,10 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch import obs, solvers  # noqa: E402
 from repro_torch.autotune import PlanCache, SearchSettings  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 
@@ -761,7 +789,7 @@ def spmm_rows(path, run, tiles, bcol, Xb, route, m, launched, per_kernel):
     kern, plain = spmm_pair(tiles, bcol, Xb)
     got, want = kern(), plain()
     compare("spmm", got, want, f"{path} {tuple(tiles.shape)} N={N}")
-    xg = Xb[bcol.reshape(-1).long()]                    # pre-gathered for the yardstick
+    xg = Xb[bcol.reshape(-1).long()].float()            # pre-gathered for the yardstick
     tiles3 = tiles.view(T, B, B).float()
 
     def library():
@@ -1179,6 +1207,200 @@ def run_mlp_train(seed, per_kernel, launches):
          dense_step_ms=dense_ms, dense="torch.matmul, dense masked float32 weights, "
          "4x the flops; tf32_off: allow_tf32 False, tf32_on: allow_tf32 True",
          err_vs_float64_dense=err, tolerance=TRAIN_TOL, runs_bit_equal=bit_equal)
+
+
+# ---------------------------------------------------------------------------
+# the serve phase: the cb-paper model served through the engine, full width
+# ---------------------------------------------------------------------------
+
+# launch/serve's traffic (src/repro/launch/serve.py's defaults)
+SERVE = dict(arch="cb-paper", requests=8, slots=4, max_new=16, max_len=256)
+SERVE_IMPL_TOL = 2.0**-5       # one tick's logits, MLP on impl="cuda" vs "reference", relative
+                               # to max |logit|: both products are float32-grade, but the
+                               # bfloat16 activations round them, and where the two land on
+                               # either side of a rounding step an activation moves by one
+                               # bf16 ulp (2^-8); over 36 layers and the unembedding that is
+                               # a few ulps of the logits, the bound of the CPU parity tests
+DECODE_TOL = 2e-3              # teacher-forced decode vs forward, float32: the reference's
+                               # own check (tests/test_models.py, rtol = atol = 2e-3)
+
+
+def serve_requests(cfg) -> list:
+    rng = np.random.default_rng(0)
+    return [Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size,
+                                                 rng.integers(2, 12)).astype(np.int32),
+                    max_new_tokens=SERVE["max_new"])
+            for uid in range(SERVE["requests"])]
+
+
+def serve_once(model, params) -> dict:
+    """``launch/serve``'s traffic through a fresh ``ServingEngine``: every tick
+    between CUDA events, synchronised (a tick reads its argmax back anyway)."""
+    eng = ServingEngine(model, params, slots=SERVE["slots"], max_len=SERVE["max_len"])
+    for req in serve_requests(model.cfg):
+        eng.submit(req)
+    done, tick_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(eng.active):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        done.extend(eng.tick())
+        b.record()
+        torch.cuda.synchronize()
+        tick_ms.append(a.elapsed_time(b))
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in done)
+    if len(done) != SERVE["requests"] or tokens != SERVE["requests"] * SERVE["max_new"]:
+        fail(f"serve: {len(done)} requests done, {tokens} tokens")
+    return dict(engine=eng, generated={r.uid: r.generated for r in done}, tick_ms=tick_ms,
+                wall_s=wall, tokens=tokens)
+
+
+def run_serve(seed, per_kernel, launches):
+    """The cb-paper model (granite-8b at full width, CB-sparse SwiGLU) served
+    through ``ServingEngine`` on the card, and its checks."""
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE["arch"])
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = Model(cfg)                                   # CUDA by default
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+
+    # -- the main path, counted: launch/serve's traffic --------------------------------
+    for w in WRAPPERS.values():
+        w.launches = 0
+    obs_before = obs.counter("repro.ops.spmm.launches").total()
+    run1 = serve_once(model, params)
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    obs_launches = obs.counter("repro.ops.spmm.launches").total() - obs_before
+    ticks = run1["engine"].ticks
+    for k, c in counted.items():
+        launches[k] += c
+    for k in ("spmm", "combine"):
+        if counted[k] < 1:
+            fail(f"serve: kernel {k} was not launched by the served requests")
+    if obs_launches != counted["spmm"]:
+        fail(f"serve: obs counted {obs_launches} spmm launches, the wrapper {counted['spmm']}")
+    per_tick = {k: c / ticks for k, c in counted.items()}
+    run2 = serve_once(model, params)
+    if run2["generated"] != run1["generated"]:
+        fail("serve: two runs of the same requests generated different tokens")
+
+    # -- one tick from a mid-sequence state: enqueue, device time, impl="reference" ----
+    B = SERVE["slots"]
+    state = model.init_decode_state(B, SERVE["max_len"])
+    rng = np.random.default_rng(seed + 41)
+    prefill = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 8)).astype(np.int32)).to(DEV)
+    for t in range(prefill.shape[1]):
+        _, state = model.decode_step(params, state, prefill[:, t:t + 1],
+                                     torch.full((B,), t, dtype=torch.int32, device=DEV))
+    tok = prefill[:, -1:]
+    pos = torch.full((B,), prefill.shape[1], dtype=torch.int32, device=DEV)
+
+    def one_tick():
+        return model.decode_step(params, state, tok, pos)
+
+    enq = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_tick()
+        enq.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    device_tick_ms = graph_ms(one_tick)
+    logits, _ = one_tick()
+    ref_logits, _ = Model(cfg, impl="reference").decode_step(params, state, tok, pos)
+    if not (torch.isfinite(logits).all() and logits.shape == (B, cfg.padded_vocab)):
+        fail(f"serve: logits {tuple(logits.shape)} or non-finite")
+    impl_err = (logits.float() - ref_logits.float()).abs().max().item()
+    impl_scale = max(1.0, ref_logits.float().abs().max().item())
+    if impl_err > SERVE_IMPL_TOL * impl_scale:
+        fail(f"serve: impl='cuda' vs 'reference' logits differ by {impl_err:.3e} > "
+             f"{SERVE_IMPL_TOL} * {impl_scale:.3e}")
+    argmax_agree = float((logits.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    del ref_logits
+
+    # -- the kernels at the decode shape: N = slots, X in bfloat16 as the path gives it --
+    layer = params.layers[0]
+    x = torch.randn((B, cfg.d_model), generator=gen, device=DEV).to(cfg.activation_dtype)
+    h = torch.randn((B, cfg.d_ff), generator=gen, device=DEV).to(cfg.activation_dtype)
+    for name, inp in (("gate", x), ("down", h)):
+        spec = model.specs[name]
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        Xb = ops.x_blocks(inp.T, spec.nb, spec.block_size)
+        spmm_rows(f"serve {name}", "serve tick", layer.ffn[name].detach(), mm.fwd.route.bcol,
+                  Xb, mm.fwd.route, spec.out_features, per_tick, per_kernel)
+        del mm, Xb
+
+    # -- one layer's MLP at the decode shape: the port's, and the dense yardstick ------
+    ffn = layer.ffn_params()
+    mlp_ms = time_ms(lambda: model_layers.mlp_apply(ffn, cfg, x, specs=model.specs))
+    Wd = {k: sparse_linear.dense_equivalent(ffn[k], model.specs[k]).contiguous()
+          for k in ("gate", "up", "down")}
+    dense_mlp_ms = {}
+    for dt in (torch.float32, torch.bfloat16):
+        W = {k: w.to(dt) for k, w in Wd.items()}
+        xd = x.to(dt)
+        dense_mlp_ms[str(dt).replace("torch.", "")] = time_ms(
+            lambda: (torch.nn.functional.silu(xd @ W["gate"]) * (xd @ W["up"])) @ W["down"])
+        del W
+    del Wd
+
+    # -- teacher-forced decode against forward, float32, two layers, full width --------
+    cfg2 = cfg.scaled(num_layers=2, dtype="float32")
+    model2 = Model(cfg2)
+    params2 = model2.init(torch.Generator(device=DEV).manual_seed(seed + 1))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(DEV)
+    with torch.no_grad():
+        full = model2.forward(params2, toks).logits
+    st = model2.init_decode_state(2, 12)
+    steps = []
+    for t in range(toks.shape[1]):
+        lg, st = model2.decode_step(params2, st, toks[:, t:t + 1],
+                                    torch.full((2,), t, dtype=torch.int32, device=DEV))
+        steps.append(lg)
+    dec = torch.stack(steps, dim=1)
+    excess = ((dec - full).abs() - (DECODE_TOL + DECODE_TOL * full.abs())).max().item()
+    if excess > 0 or not torch.isfinite(dec).all():
+        fail(f"serve: teacher-forced decode differs from forward beyond rtol=atol={DECODE_TOL}")
+    decode_err = (dec - full).abs().max().item()
+    del model2, params2, full, dec, st
+
+    # bytes a tick must move: the float32 weights once (of the embedding only the rows
+    # it gathers), the whole KV cache read once; bytes bound it (4 columns)
+    kv_bytes = sum(t.numel() * t.element_size() for t in (state["k"], state["v"]))
+    embed_bytes = params.embed.numel() * params.embed.element_size()
+    tick_bytes = param_bytes - embed_bytes + B * cfg.d_model * 4 + kv_bytes
+    b_ms, b_by = bound(tick_bytes, 2 * B * (param_bytes - embed_bytes) // 4)
+    tick_med = statistics.median(run2["tick_ms"])
+    emit("serve", config=f"{cfg.name}: granite-8b d_model {cfg.d_model}, {cfg.num_heads} heads, "
+         f"{cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, CB-sparse "
+         f"SwiGLU B={cfg.sparse_block} keep {cfg.sparse_keep}, activations {cfg.dtype}, "
+         "float32 weights", layers=cfg.num_layers, layers_cut=None,
+         param_bytes=param_bytes, init_s=t_init,
+         traffic=dict(SERVE, prompts="np.random.default_rng(0), 2-11 tokens"),
+         ticks=ticks, tokens=run2["tokens"], wall_s=[run1["wall_s"], run2["wall_s"]],
+         tokens_per_s=run2["tokens"] / run2["wall_s"],
+         tokens_per_s_first_run=run1["tokens"] / run1["wall_s"],
+         tick_ms=tick_med, tick_ms_p90=float(np.percentile(run2["tick_ms"], 90)),
+         tick_ms_first_run=statistics.median(run1["tick_ms"]),
+         tick_enqueue_ms=statistics.median(enq), device_tick_ms=device_tick_ms,
+         host_share=1 - device_tick_ms / tick_med,
+         bound_ms=b_ms, bound_by=b_by, tick_bytes=tick_bytes, kv_cache_bytes=kv_bytes,
+         launches_per_tick=per_tick, obs_spmm_launches_per_tick=obs_launches / ticks,
+         health=run2["engine"].health()["tick_latency_s"],
+         runs_bit_equal=True, impl_reference_max_abs_err=impl_err,
+         impl_reference_tolerance=SERVE_IMPL_TOL * impl_scale, argmax_agree=argmax_agree,
+         decode_vs_forward=dict(layers=2, dtype="float32", max_abs_err=decode_err,
+                                rtol=DECODE_TOL, atol=DECODE_TOL),
+         mlp_layer_ms=mlp_ms, dense_mlp_layer_ms=dense_mlp_ms,
+         dense_mlp="torch.matmul of one layer's dense_equivalent weights, x (4, 4096)",
+         nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
+    del params, model, state
 
 
 # ---------------------------------------------------------------------------
@@ -1730,6 +1952,8 @@ def main() -> None:
     run_solve(args.seed, launches, solver_launches)
     torch.cuda.empty_cache()
     run_mlp_train(args.seed, per_kernel, launches)
+    torch.cuda.empty_cache()
+    run_serve(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
 
     kernels = []

@@ -1,0 +1,3 @@
+"""Model library: the dense and VLM families of the JAX package's ten
+architectures, on PyTorch (the others are not ported yet)."""
+from .model import Model, params_from_numpy  # noqa: F401

@@ -1,0 +1,304 @@
+"""Shared layer library: norms, embeddings, RoPE, attention cores, MLPs.
+
+The port of ``repro.models.layers`` (``src/repro/models/layers.py``).
+Functional like the reference: ``*_init(generator, cfg, ..., device)``
+draws a dict of float32 tensors, ``*_apply(params, ...)`` computes with
+them; ``transformer.DecoderLayer`` holds one layer's dicts as parameters.
+
+None of this runs a Pallas kernel in the reference: attention, RoPE and
+the norms are XLA there, so plain torch ops are their port, mirrored op for
+op with the reference's casts (bfloat16 operands with float32 accumulation
+where it asks for ``preferred_element_type=float32``; norms and RoPE in
+float32, cast back). The one kernel path is the CB-sparse MLP:
+``sparse.linear.cb_linear_apply`` runs ``csrc/cb_spmm.cu`` and the combine
+on the card (their plain versions on the CPU). The JAX model calls its
+layer's default, the reference SpMM (``impl="reference"``,
+``src/repro/sparse/linear.py``), not its Pallas kernel. The reference's
+``sharding.constrain`` calls have no counterpart on one device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import errors
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streams import resolve_device
+from repro_torch.sparse.linear import cb_linear_apply, cb_spec_random, cb_tiles_init
+
+
+def _normal(generator: torch.Generator, shape: tuple, scale: float, device) -> torch.Tensor:
+    """float32 normals times ``scale``, drawn on the generator's device and
+    placed on ``device``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * scale
+    return w.to(resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# basics
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int, device=None) -> torch.Tensor:
+    return _normal(generator, (vocab, d), 0.02, device)
+
+
+def vocab_logit_mask(vocab_real: int, vocab_padded: int, device=None) -> torch.Tensor:
+    """(Vpad,) additive mask: 0 for real ids, -1e9 for padding ids."""
+    ids = torch.arange(vocab_padded, device=device)
+    return torch.where(ids < vocab_real, 0.0, -1e9).to(torch.float32)
+
+
+def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Suppress padding-vocab logits (no-op when vocab needs no padding)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    mask = vocab_logit_mask(cfg.vocab_size, cfg.padded_vocab, logits.device)
+    return logits + mask.to(logits.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """positions (...,) -> cos/sin (..., head_dim/2), float32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device)
+                      / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, dh); cos/sin broadcastable (..., S, 1, dh/2)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core (q-chunked, memory-efficient; GQA; optional SWA window)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int | None) -> torch.Tensor:
+    """Additive bias (q, k) in float32: 0 allowed, -inf masked."""
+    if causal:
+        allowed = q_pos[..., :, None] >= k_pos[..., None, :]
+    else:
+        allowed = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                             device=k_pos.device)
+    if window is not None:
+        allowed = allowed & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+    return torch.where(allowed, 0.0, float("-inf")).to(torch.float32)
+
+
+def attention_core(
+    q: torch.Tensor,            # (B, Sq, H, dh)
+    k: torch.Tensor,            # (B, Sk, Hkv, dh)
+    v: torch.Tensor,            # (B, Sk, Hkv, dh)
+    *,
+    causal: bool,
+    window: int | None = None,
+    q_offset: torch.Tensor | int = 0,     # absolute position of q[0]
+    chunk: int = 1024,
+    kv_valid_len: torch.Tensor | None = None,   # decode: #valid cache slots (B,)
+) -> torch.Tensor:
+    """Memory-efficient attention: a loop over q chunks, full-K softmax rows.
+
+    Never materialises the (Sq, Sk) score tensor: per chunk it is
+    (chunk, Sk). GQA repeats K/V onto the query heads, as the reference
+    does. The products take the reference's numerics: the scaled q is
+    rounded to q's dtype, QK and PV multiply those operands and sum in
+    float32 (upcasting a bfloat16 operand is exact), the probabilities are
+    rounded to v's dtype before PV, and the result to q's. The reference's
+    ``unroll`` (a switch of its ``lax.scan`` for cost probes) has no
+    counterpart: this loop is plain Python.
+    """
+    B, Sq, H, dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    groups = H // Hkv
+    qf = q * dh**-0.5                    # rounded to q's dtype, as in the reference
+    k_pos = torch.arange(Sk, device=q.device)
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    kf, vf = k.float(), v.float()
+
+    def one_chunk(q_chunk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+        logits = torch.einsum("bchd,bshd->bhcs", q_chunk.float(), kf)
+        bias = _mask_bias(q_pos, k_pos, causal, window)             # (C, Sk)
+        if kv_valid_len is not None:
+            valid = k_pos[None, :] < kv_valid_len[:, None]          # (B, Sk)
+            bias = bias[None, :, :] + torch.where(valid, 0.0, float("-inf"))[:, None, :]
+            logits = logits + bias[:, None, :, :]
+        else:
+            logits = logits + bias[None, None, :, :]
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhcs,bshd->bchd", probs.to(v.dtype).float(), vf)
+        return out.to(q.dtype)
+
+    if Sq <= chunk:
+        return one_chunk(qf, q_offset + torch.arange(Sq, device=q.device))
+    n_chunks = -(-Sq // chunk)
+    if n_chunks * chunk != Sq:
+        qf = F.pad(qf, (0, 0, 0, 0, 0, n_chunks * chunk - Sq))
+    outs = [one_chunk(qf[:, i * chunk:(i + 1) * chunk],
+                      q_offset + i * chunk + torch.arange(chunk, device=q.device))
+            for i in range(n_chunks)]
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def attention_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> dict:
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.resolved_head_dim
+    params = {
+        "wq": _normal(generator, (d, H, dh), d**-0.5, device),
+        "wk": _normal(generator, (d, Hkv, dh), d**-0.5, device),
+        "wv": _normal(generator, (d, Hkv, dh), d**-0.5, device),
+        "wo": _normal(generator, (H, dh, d), (H * dh) ** -0.5, device),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=resolve_device(device))
+        params["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=resolve_device(device))
+    return params
+
+
+def attention_apply(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,                  # (B, S, d)
+    *,
+    positions: torch.Tensor,          # (S,) or (B, S)
+    causal: bool = True,
+    cache: dict | None = None,        # decode: {"k", "v", "pos"}
+    window: int | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention; with ``cache`` one decode step.
+
+    In decode this step's k/v are written into ``cache["k"]`` /
+    ``cache["v"]`` in place, and the returned cache holds those same
+    tensors: the caller hands in buffers it owns (``transformer.decode_step``
+    copies the state it was given once, so that state is never written and
+    a retried step starts from the same bits).
+    """
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
+    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    cos, sin = cos[..., None, :], sin[..., None, :]   # broadcast over heads
+    if positions.ndim == 1:
+        cos, sin = cos[None], sin[None]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if cache is None:
+        out = attention_core(q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk)
+    else:
+        # decode: append this step's k/v into the (ring) cache
+        ck, cv, pos = cache["k"], cache["v"], cache["pos"]   # pos (B,)
+        S_max = ck.shape[1]
+        slot = pos % S_max
+        ck = _scatter_step(ck, k, slot)
+        cv = _scatter_step(cv, v, slot)
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+        kv_len = torch.clamp(pos + 1, max=S_max)
+        out = attention_core(q, ck, cv, causal=False, window=None,
+                             kv_valid_len=kv_len, chunk=cfg.attn_chunk)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    return y, new_cache
+
+
+def _scatter_step(cache: torch.Tensor, kv: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Write kv (B, 1, Hkv, dh) at per-batch ``slot`` into cache (B, S, Hkv, dh),
+    in place; returns ``cache``.
+
+    The reference blends with a one-hot mask (``cache * (1 - oh) + oh *
+    kv``) so that a sequence-sharded cache needs no cross-shard scatter.
+    For finite values that blend equals this index write bit for bit, but
+    for the sign of a zero; on one device the write touches B rows instead
+    of the whole cache.
+    """
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long()] = kv[:, 0]
+    return cache
+
+
+def decode_cache_init(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                      device=None) -> dict:
+    """Ring-buffer KV cache; SWA archs only keep the window."""
+    dev = resolve_device(device)
+    window = cfg.swa_window
+    S = min(max_len, window) if window else max_len
+    shape = (n_layers, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLPs (SwiGLU; dense or CB-sparse)
+# ---------------------------------------------------------------------------
+
+def build_mlp_specs(cfg: ModelConfig, seed: int = 42):
+    """CB sparsity specs for the SwiGLU projections (numpy only), bit-equal
+    to the reference's: one pattern shared by every layer, seeds 42, 43 and
+    44 through ``cb_spec_random``."""
+    if not cfg.sparse_mlp:
+        return None
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def mk(i, o, s):
+        return cb_spec_random(i, o, block_size=cfg.sparse_block,
+                              keep_fraction=cfg.sparse_keep, seed=s)
+
+    return {"gate": mk(d, ff, seed), "up": mk(d, ff, seed + 1), "down": mk(ff, d, seed + 2)}
+
+
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.sparse_mlp:
+        if specs is None:
+            raise errors.InvalidArgError("sparse_mlp requires precomputed specs (build_mlp_specs)")
+        return {k: cb_tiles_init(generator, specs[k], device=device)
+                for k in ("gate", "up", "down")}
+    return {
+        "w_gate": _normal(generator, (d, ff), d**-0.5, device),
+        "w_up": _normal(generator, (d, ff), d**-0.5, device),
+        "w_down": _normal(generator, (ff, d), ff**-0.5, device),
+    }
+
+
+def mlp_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, specs=None,
+              impl: str = "cuda") -> torch.Tensor:
+    """SwiGLU; CB-sparse products run ``cb_linear_apply`` with ``impl`` on
+    x's device (``"cuda"``: the kernel on a CUDA tensor, its plain version
+    on a CPU one)."""
+    dt = x.dtype
+    if cfg.sparse_mlp:
+        def lin(name, inp):
+            return cb_linear_apply(params[name], specs[name], inp, impl=impl, device=inp.device)
+
+        h = F.silu(lin("gate", x)) * lin("up", x)
+        return lin("down", h)
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    return (F.silu(g) * u) @ params["w_down"].to(dt)

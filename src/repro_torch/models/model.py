@@ -1,0 +1,78 @@
+"""Unified model API, the port of ``repro.models.model``.
+
+    model = Model(cfg)                        # on CUDA; Model(cfg, "cpu") on the CPU
+    params = model.init(generator)            # an nn.Module of float32 weights
+    out = model.forward(params, tokens)
+    state = model.init_decode_state(batch, max_len)
+    logits, state = model.decode_step(params, state, tokens, pos)
+
+The dense and VLM families are ported (``transformer``); the others raise
+``errors.InvalidArgError``. CB sparsity specs (``cfg.sparse_mlp``) are
+built at construction: they are structural (numpy only), shared by every
+layer, and bit-equal to the reference's. ``init`` returns the parameters
+alone: the reference's logical-axis tree has no counterpart on one device.
+``params_from_numpy`` brings the reference's parameter tree across.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streams import _as_tensor, resolve_device
+
+from . import transformer
+from .layers import build_mlp_specs
+
+
+class Model:
+    """``impl`` is that of the sparse MLP's products (``cb_linear_apply``):
+    ``"cuda"`` (the kernels) or ``"reference"`` (the plain oracle)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *, impl: str = "cuda"):
+        transformer.check_family(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.impl = impl
+        self.specs = build_mlp_specs(cfg) if cfg.sparse_mlp else None
+
+    def init(self, generator: torch.Generator) -> transformer.LM:
+        return transformer.lm_init(generator, self.cfg, specs=self.specs, device=self.device)
+
+    def forward(self, params, tokens, **kw) -> transformer.LMOutputs:
+        return transformer.forward(params, self.cfg, tokens, specs=self.specs,
+                                   impl=self.impl, **kw)
+
+    def init_decode_state(self, batch: int, max_len: int) -> dict:
+        return transformer.init_decode_state(self.cfg, batch, max_len, device=self.device)
+
+    def decode_step(self, params, state, tokens, pos):
+        return transformer.decode_step(params, self.cfg, state, tokens, pos,
+                                       specs=self.specs, impl=self.impl)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> transformer.LM:
+    """The port's parameters from the reference's ``Model.init`` tree as numpy
+    arrays: ``embed``, ``layers`` stacked on axis 0 (``attn.wq`` (L, d, H, dh),
+    ..., ``ffn.{gate,up,down}.tiles`` (L, nt, B, B) or ``ffn.w_*``, ``norm1`` /
+    ``norm2`` (L, d)), ``final_norm`` and, unless tied, ``unembed``. The
+    layers are unstacked into ``DecoderLayer``s, bit for bit, on ``device``
+    (default CUDA)."""
+    transformer.check_family(cfg)
+    dev = resolve_device(device)
+
+    def t(a):
+        return _as_tensor(np.asarray(a)).to(dev)
+
+    lyr = tree["layers"]
+
+    def ffn(i):
+        if cfg.sparse_mlp:
+            return {k: {"tiles": t(v["tiles"][i])} for k, v in lyr["ffn"].items()}
+        return {k: t(v[i]) for k, v in lyr["ffn"].items()}
+
+    layers = [transformer.DecoderLayer({k: t(v[i]) for k, v in lyr["attn"].items()}, ffn(i),
+                                       t(lyr["norm1"][i]), t(lyr["norm2"][i]))
+              for i in range(cfg.num_layers)]
+    unembed = None if cfg.tie_embeddings else t(tree["unembed"])
+    return transformer.LM(t(tree["embed"]), layers, t(tree["final_norm"]), unembed)

@@ -18,6 +18,11 @@ is built once per (spec, impl, group size, device) and kept in a
 weakref-keyed cache, so a training step does no host sort and reads
 nothing back. Specs are bit-equal to the JAX package's
 (``src/repro/sparse/linear.py``).
+
+Each product records ``ops.cb_spmm``'s launch accounting in ``obs``
+(``repro.ops.spmm.calls`` and, for ``impl="cuda"``, ``launches`` /
+``steps`` / ``padded_elems`` per call, steps counting tile groups), from
+one cached batch per direction.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import errors
+from repro_torch import errors, obs
 from repro_torch.core.streams import (
     TileStream, _as_tensor, build_tile_stream, resolve_device,
 )
@@ -245,6 +250,8 @@ class _Direction:
     mb: int
     nb: int
     route: ops.TileRoute | None   # impl="cuda" only
+    stats: dict | None            # the route's launch accounting (impl="cuda" only)
+    obs_cache: dict               # ops._record_call's cached batch
 
 
 class _Matmul:
@@ -267,7 +274,14 @@ class _Matmul:
             brow, bcol = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
                           for a in (brow, bcol))
             route = ops.tile_route(brow, bcol, group_size or 1) if impl == "cuda" else None
-            return _Direction(brow, bcol, m, n, mb, nb, route)
+            stats = None
+            if route is not None:
+                gt, Gt = route.bcol.shape
+                padded = gt * Gt * self.B * self.B
+                stats = {"group_size": route.group_size, "steps": {"tiles": gt},
+                         "padded": {"tiles": padded}, "launches": {"tiles": int(gt > 0)},
+                         "steps_total": gt, "padded_total": padded}
+            return _Direction(brow, bcol, m, n, mb, nb, route, stats, {})
 
         i, o = spec.in_features, spec.out_features
         self.fwd = direction(spec.brow, spec.bcol, o, i, spec.mb, spec.nb)
@@ -281,8 +295,12 @@ class _Matmul:
         if self.impl == "reference":
             ts = TileStream(block_size=self.B, m=d.m, n=d.n, mb=d.mb, nb=d.nb,
                             tiles=tiles, brow=d.brow, bcol=d.bcol)
-            return ref.cb_spmm(ts, X)
-        return ops.spmm_routed(d.route, tiles, Xb, d.m)
+            Y = ref.cb_spmm(ts, X)
+        else:
+            Y = ops.spmm_routed(d.route, tiles, Xb, d.m)
+        if obs.is_enabled():
+            ops._record_call("spmm", d.stats, self.impl, None, d.obs_cache)
+        return Y
 
     def forward(self, tiles: torch.Tensor, X: torch.Tensor):
         """Y (out, N), and the blocked X that dW reuses."""

@@ -259,3 +259,55 @@ def test_timed_plan_search_runs_the_kernels_on_the_card():
     assert torch.equal(y, tops.cb_spmv(s, x, plan=plan))
     np.testing.assert_allclose(y.cpu().numpy(), dense_oracle(rows, cols, vals, shape, x),
                                rtol=3e-4, atol=3e-4)
+
+
+# -- serving on the card (tests/test_torch_models.py, tests/test_torch_serving.py) -----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2.0**-5)])
+def test_cb_paper_decode_on_the_card_matches_the_cpu(dtype, tol):
+    """Teacher-forced decode of smoke-width cb-paper on the card (the sparse
+    MLP on ``csrc/cb_spmm.cu`` and the combine) against the same weights on
+    the CPU plain path; the tolerances of ``tests/test_torch_models.py``."""
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = get_smoke_config("cb-paper").scaled(dtype=dtype)
+    cpu, card = Model(cfg, "cpu"), Model(cfg, "cuda")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_card = card.init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(p_card.parameters(), p_cpu.parameters()))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 6)))
+    st_cpu, st_card = cpu.init_decode_state(3, 8), card.init_decode_state(3, 8)
+    before = t_spmm.super_tile_spmm.launches
+    for t in range(toks.shape[1]):
+        pos = torch.full((3,), t, dtype=torch.int32)
+        want, st_cpu = cpu.decode_step(p_cpu, st_cpu, toks[:, t:t + 1], pos)
+        got, st_card = card.decode_step(p_card, st_card, toks[:, t:t + 1].cuda(), pos.cuda())
+        assert got.is_cuda and got.dtype == cfg.activation_dtype
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float().cpu() - want.float()).abs().max().item() <= tol * scale
+    assert t_spmm.super_tile_spmm.launches - before == 3 * cfg.num_layers * toks.shape[1]
+
+
+@pytest.mark.cuda
+def test_engine_tokens_bit_equal_over_two_runs_on_the_card():
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingEngine
+
+    model = Model(get_smoke_config("cb-paper"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab_size, rng.integers(2, 12)).astype(np.int32)
+               for _ in range(6)]
+    runs = []
+    for _ in range(2):
+        eng = ServingEngine(model, params, slots=4, max_len=64)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+        runs.append({r.uid: r.generated for r in eng.run_until_done()})
+    assert sorted(runs[0]) == list(range(6)) and all(len(g) == 8 for g in runs[0].values())
+    assert runs[0] == runs[1]

@@ -370,7 +370,11 @@ def test_port_has_every_module_of_the_slice():
                 "kernels/cb_combine.py", "obs/__init__.py", "obs/metrics.py", "obs/spans.py",
                 "obs/locality.py", "autotune/__init__.py", "autotune/features.py",
                 "autotune/cost.py", "autotune/plan.py", "autotune/search.py",
-                "autotune/timing.py"):
+                "autotune/timing.py", "configs/__init__.py", "configs/base.py",
+                "configs/granite_8b.py", "models/__init__.py", "models/layers.py",
+                "models/transformer.py", "models/model.py", "serving/__init__.py",
+                "serving/decode.py", "serving/engine.py", "launch/__init__.py",
+                "launch/serve.py"):
         assert mod in have, mod
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu",
