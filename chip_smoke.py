@@ -118,10 +118,35 @@ the ``nvidia-smi`` line):
    and down). One layer's MLP at that shape is timed through the port and
    through ``torch.matmul`` of its dense weights (float32 and bfloat16), a
    yardstick.
-10. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+10. ``train`` — the ``cb-paper`` model of step 9 (36 layers, full width, float32
+   weights from a seeded CUDA generator, ``remat="full"``) trained by
+   ``repro_torch.training.run_training`` with AdamW on ``launch/train``'s
+   traffic: ``SyntheticTokenStream``, global batch 8 x 256 tokens, one
+   microbatch, no compression, 6 steps, every step logged (so synchronised),
+   no checkpointer. The serve phase's weights are freed first: params, grads
+   and two moments are 56 GB. The launch counters and obs's
+   ``repro.ops.spmm.launches`` are zeroed before and read after the run and
+   held to the count the code gives (``train_launches_per_step``: 9 spmm
+   launches a layer a step). Then: ``step_ms`` (host clock around each
+   synchronised step, median of steps 2-6), ``tokens_per_s``, ``fwd_ms`` /
+   ``bwd_ms`` / ``optimizer_ms`` (CUDA events on one more step),
+   ``peak_mem_gb`` (``torch.cuda.max_memory_allocated``), the device's idle
+   share and its time by kernel group (``torch.profiler`` over one more step),
+   and ``bound_ms`` (``train_bound``). Checks: finite losses; two 2-step runs
+   from the same init bit-equal (losses and parameters); at full width with 2
+   layers, ``impl="cuda"`` against ``"reference"`` (loss within
+   ``TRAIN_IMPL_TOL``, ``grad_norm`` within ``TRAIN_GNORM_TOL``) and bfloat16
+   against float32 activations (``BF16_F32``); the spmm kernel and the combine
+   against their plain versions at the training shapes (N = 2048: forward with
+   X bfloat16, dX with dY float32; gate and down). ``train_resume``:
+   ``cb-paper-smoke`` 10 steps with a checkpoint at 5 and 10, restored at 5
+   and run to 10, parameters bit-equal to the straight run's.
+11. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
-   runs, one training step, the first served run, summed; ``launches_per_call`` has them
-   apart, keyed by the counted run, the solver runs per iteration, the served run per tick), worst error seen,
+   runs, one MLP training step, the first served run, the 6 trained steps,
+   summed; ``launches_per_call`` has them apart, keyed by the counted run, the
+   solver runs per iteration, the served run per tick, the training run per
+   step), worst error seen,
    time (and the host's time to enqueue one call, ``enqueue_ms``: where it
    is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over the rate of the
@@ -129,7 +154,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-11. the ``nvidia-smi`` name and power limit, then the verdict line.
+12. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -138,8 +163,9 @@ with CUDA events over warm, back-to-back calls (see ``time_ms``).
 ``torch.matmul`` appear here as yardsticks only, and ``torch.bmm`` as one too
 except in the sparse layer's dW, which the JAX package also leaves outside
 any kernel; the port's CUDA path calls none of the others, but for the
-served model's dense projections, attention and norms (``torch.einsum`` /
-``matmul`` and elementwise ops), which the JAX package leaves to XLA too. Float32 matrix
+models' dense projections, attention, norms, loss and optimizer
+(``torch.einsum`` / ``matmul``, elementwise and ``torch._foreach_*`` ops),
+which the JAX package leaves to XLA too. Float32 matrix
 products run in full float32 (``allow_tf32`` is set False) unless a line
 says otherwise. The sizes
 are fixed: the script has no rehearsal mode, so its verdict line always
@@ -149,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import inspect
 import json
 import math
@@ -176,12 +203,18 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch import obs, solvers  # noqa: E402
 from repro_torch.autotune import PlanCache, SearchSettings  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    OPTIMIZERS, TrainLoopConfig, TrainState, build_train_step, run_training, warmup_cosine,
+)
+from repro_torch.training.optimizer import global_norm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
@@ -1404,6 +1437,320 @@ def run_serve(seed, per_kernel, launches):
 
 
 # ---------------------------------------------------------------------------
+# the train phase: the cb-paper model trained through run_training, full width
+# ---------------------------------------------------------------------------
+
+# launch/train's traffic (src/repro/launch/train.py's defaults) for 6 steps
+TRAIN = dict(arch="cb-paper", steps=6, global_batch=8, seq_len=256, optimizer="adamw",
+             microbatches=1, compression="none")
+TRAIN_IMPL_TOL = 2.0**-5       # first step's loss, MLP on impl="cuda" vs "reference", relative:
+                               # PR 17's bf16 bound (SERVE_IMPL_TOL says why)
+TRAIN_GNORM_TOL = 1e-2         # its grad_norm, relative: the same roundings, summed over 0.9 G
+                               # gradient elements
+# float32 against bfloat16 activations, the same weights and batch (2 layers): the loss
+# within the bf16 bound, the gradient of every parameter pointing the same way (cosine)
+# and of the same size (norm ratio). On the CPU at widths 512 and 1024 the two agree to
+# a cosine of 0.9999 and a norm ratio within 0.15%; a wrong cast or a lost product moves
+# them by far more.
+BF16_F32 = dict(loss_rel=2.0**-5, min_cosine=0.99, norm_ratio=(0.9, 1.1))
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+ADAMW_BYTES_PER_PARAM = 28     # AdamW reads p, g, m, v and writes p, m, v: 7 float32
+
+
+def train_launches_per_step(model) -> dict:
+    """Kernel launches one training step must make, from the code: every
+    sparse product (gate, up, down in each layer) runs the spmm kernel once
+    and the combine once per pass of its plan (``ops.spmm_routed``), in the
+    forward, again in the recompute of ``remat="full"`` (``transformer._remat``),
+    and once more for dX on the transposed tiles (``sparse.linear._Matmul``);
+    dW is ``torch.bmm``."""
+    cfg = model.cfg
+    fwd_runs = 1 + (cfg.remat == "full")
+    spmm = combine = 0
+    for spec in model.specs.values():
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        spmm += fwd_runs + 1
+        combine += fwd_runs * len(mm.fwd.route.combine.passes) + len(mm.bwd.route.combine.passes)
+    return {"spmm": cfg.num_layers * spmm, "combine": cfg.num_layers * combine}
+
+
+def train_bound(cfg, specs, n_params: int) -> dict:
+    """The least time the card could take for one training step: the step's
+    products over the rate of their arithmetic, plus the optimizer's bytes.
+
+    bound_ms = bf16_flops / 989 TFLOP/s + sparse_flops / 165 TFLOP/s
+               + 28 B * n_params / 3.35 TB/s
+    bf16_flops: the attention projections (q, k, v, o), QK^T and PV over the
+    full S x S (as computed), each layer's forward run 1 + remat times and
+    its backward (dX and dW, 2x), and the unembedding (forward and backward).
+    The reference's operands are bfloat16 with float32 sums, the tensor
+    cores' bf16 rate. sparse_flops: the MLP's three CB products, 2 nt B^2 N
+    each, in the forward (1 + remat runs), dX and dW: float32-grade, priced
+    at 3xTF32 as PERF.md prices the spmm kernel. Norms, softmax, RoPE and the
+    loss are left out, so this is a floor."""
+    N = TRAIN["global_batch"] * TRAIN["seq_len"]
+    d, H, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    fwd_runs = 1 + (cfg.remat == "full")
+    proj = 2 * N * d * dh * (2 * H + 2 * Hkv)
+    attn = 2 * 2 * TRAIN["global_batch"] * H * TRAIN["seq_len"] ** 2 * dh
+    bf16 = cfg.num_layers * (proj + attn) * (fwd_runs + 2) + 3 * 2 * N * d * cfg.padded_vocab
+    sparse = cfg.num_layers * sum(2 * sp.num_tiles * sp.block_size ** 2 * N
+                                  for sp in specs.values()) * (fwd_runs + 2)
+    opt_bytes = ADAMW_BYTES_PER_PARAM * n_params
+    parts = {"bf16_products_ms": bf16 / BF16_FLOPS_PER_S * 1e3,
+             "sparse_products_ms": sparse / TF32X3_FLOPS_PER_S * 1e3,
+             "optimizer_bytes_ms": opt_bytes / HBM_BYTES_PER_S * 1e3}
+    return dict(bound_ms=sum(parts.values()), bound_parts_ms=parts, bf16_flops=bf16,
+                sparse_flops=sparse, optimizer_bytes=opt_bytes)
+
+
+def kernel_group(name: str) -> str:
+    """A device kernel's group in the step's time (torch.profiler's names)."""
+    n = name.lower()
+    if "cb_spmm" in n or "super_tile" in n:
+        return "spmm kernel"
+    if "segment" in n or "combine" in n:
+        return "combine"
+    if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "sm90", "bmm")):
+        return "gemm (cuBLAS)"
+    if "multi_tensor_apply" in n or "foreach" in n:
+        return "foreach (optimizer, clip)"
+    if "copy" in n or "convert" in n:
+        return "casts and copies"
+    if any(k in n for k in ("softmax", "reduce", "norm", "logsumexp")):
+        return "reductions"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    return "other"
+
+
+def fresh_state(model, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return TrainState.create(model.init(gen), OPTIMIZERS[TRAIN["optimizer"]]())
+
+
+def train_loop_config(steps: int) -> TrainLoopConfig:
+    """launch/train's loop settings for ``steps`` steps (its default peak lr
+    3e-4 and warmup 10), every step logged."""
+    return TrainLoopConfig(total_steps=steps, optimizer=TRAIN["optimizer"],
+                           microbatches=TRAIN["microbatches"], compression=TRAIN["compression"],
+                           checkpoint_every=max(10, steps // 4), log_every=1)
+
+
+class EventedModel:
+    """A model whose ``loss`` is bracketed by two CUDA events (the forward)."""
+
+    def __init__(self, model, events):
+        self.model, self.events = model, events
+
+    def loss(self, params, batch):
+        self.events[0].record()
+        out = self.model.loss(params, batch)
+        self.events[1].record()
+        return out
+
+
+def run_train(seed, per_kernel, launches):
+    """The cb-paper model (granite-8b at full width, CB-sparse SwiGLU, full
+    remat) trained through ``run_training`` on the card, and its checks."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    model = Model(cfg)                                   # CUDA by default
+    stream = SyntheticTokenStream(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=TRAIN["seq_len"],
+                                             global_batch=TRAIN["global_batch"]))
+    expected = train_launches_per_step(model)
+    t0 = time.perf_counter()
+    state = fresh_state(model, seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+
+    # -- the main path, counted: launch/train's traffic for 6 steps --------------------
+    loop = train_loop_config(TRAIN["steps"])
+    for w in WRAPPERS.values():
+        w.launches = 0
+    obs_before = obs.counter("repro.ops.spmm.launches").total()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = run_training(model, stream, loop, initial_state=state)
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    obs_launches = obs.counter("repro.ops.spmm.launches").total() - obs_before
+    for k, c in counted.items():
+        launches[k] += c
+    per_step = {k: c / TRAIN["steps"] for k, c in counted.items()}
+    for k in ("spmm", "combine"):
+        if per_step[k] != expected[k]:
+            fail(f"train: {k} launched {per_step[k]} times a step, the code says {expected[k]}")
+    if obs_launches != counted["spmm"]:
+        fail(f"train: obs counted {obs_launches} spmm launches, the wrapper {counted['spmm']}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != TRAIN["steps"] or not all(map(math.isfinite, losses)):
+        fail(f"train: losses {losses}")
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    step_med = statistics.median(step_ms[1:])
+
+    # -- one more step: forward, backward and optimizer between CUDA events -------------
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    lr_fn = warmup_cosine(loop.peak_lr, loop.warmup_steps, loop.total_steps)
+    step_fn = build_train_step(EventedModel(model, ev), OPTIMIZERS[loop.optimizer](), lr_fn,
+                               clip_norm=loop.clip_norm)
+    hook = state.params.embed.register_post_accumulate_grad_hook(lambda p: ev[2].record())
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in stream.batch(TRAIN["steps"]).items()}
+    # the optimizer's state is the state's own: the step goes on from step 6
+    step_fn(state, batch)
+    ev[3].record()
+    torch.cuda.synchronize()
+    hook.remove()
+    fwd_ms, bwd_ms, opt_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+    # -- one more step under torch.profiler: device busy time, by kernel group ----------
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, n_ops = collections.Counter(), 0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] += dev / 1e3
+        if e.key.startswith("aten::"):
+            n_ops += e.count
+    by_group = collections.Counter()
+    for k, ms in by_kernel.items():
+        by_group[kernel_group(k)] += ms
+    busy_ms = sum(by_kernel.values())
+    del prof, state, hist, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # -- two runs from the same init, 2 steps each: bit-equal losses and parameters -----
+    runs = []
+    for _ in range(2):
+        st, h = run_training(model, stream, train_loop_config(2),
+                             initial_state=fresh_state(model, seed))
+        runs.append(([x["loss"] for x in h], [p.detach().cpu() for p in st.params.parameters()]))
+        del st
+        torch.cuda.empty_cache()
+    runs_bit_equal = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    if not runs_bit_equal:
+        fail(f"train: two runs from the same init differ (losses {runs[0][0]} / {runs[1][0]})")
+    del runs
+
+    # -- full width, 2 layers: impl="cuda" vs "reference", and float32 vs bfloat16 ------
+    cfg2 = cfg.scaled(num_layers=2)
+    params2 = Model(cfg2).init(torch.Generator(device=DEV).manual_seed(seed + 1))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in stream.batch(0).items()}
+
+    def loss_and_grads(m):
+        for p in params2.parameters():
+            p.grad = None
+        loss, _ = m.loss(params2, batch)
+        loss.backward()
+        return loss.item(), [p.grad for p in params2.parameters()]
+
+    l_cuda, g_cuda = loss_and_grads(Model(cfg2))
+    n_cuda = global_norm(g_cuda).item()
+    l_ref, g_ref = loss_and_grads(Model(cfg2, impl="reference"))
+    n_ref = global_norm(g_ref).item()
+    del g_ref
+    impl = dict(loss=[l_cuda, l_ref], grad_norm=[n_cuda, n_ref],
+                loss_rel_err=abs(l_cuda - l_ref) / abs(l_ref),
+                grad_norm_rel_err=abs(n_cuda - n_ref) / n_ref,
+                tolerance=dict(loss=TRAIN_IMPL_TOL, grad_norm=TRAIN_GNORM_TOL))
+    if impl["loss_rel_err"] > TRAIN_IMPL_TOL or impl["grad_norm_rel_err"] > TRAIN_GNORM_TOL:
+        fail(f"train: impl='cuda' vs 'reference' at 2 layers: {impl}")
+    l_f32, g_f32 = loss_and_grads(Model(cfg2.scaled(dtype="float32")))
+    cosine = [float(torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+              for a, b in zip(g_cuda, g_f32)]
+    ratio = [float(a.norm() / b.norm()) for a, b in zip(g_cuda, g_f32)]
+    lo, hi = BF16_F32["norm_ratio"]
+    bf16_f32 = dict(loss=[l_cuda, l_f32], loss_rel_err=abs(l_cuda - l_f32) / abs(l_f32),
+                    min_cosine=min(cosine), norm_ratio=[min(ratio), max(ratio)],
+                    tolerance=BF16_F32)
+    if (bf16_f32["loss_rel_err"] > BF16_F32["loss_rel"] or min(cosine) < BF16_F32["min_cosine"]
+            or min(ratio) < lo or max(ratio) > hi):
+        fail(f"train: bfloat16 and float32 disagree at 2 layers: {bf16_f32}")
+    del params2, g_cuda, g_f32, batch
+    torch.cuda.empty_cache()
+
+    # -- the kernels at the training shapes: N = 2048, X bf16 forward, dY float32 for dX --
+    N = TRAIN["global_batch"] * TRAIN["seq_len"]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    layer0 = Model(cfg.scaled(num_layers=1)).init(gen).layers[0]
+    parts = {}
+    for name in ("gate", "down"):
+        spec = model.specs[name]
+        B = spec.block_size
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        tiles = layer0.ffn[name].detach()
+        X = torch.randn((spec.in_features, N), generator=gen, device=DEV).to(cfg.activation_dtype)
+        dY = torch.randn((spec.out_features, N), generator=gen, device=DEV)
+        fwd = spmm_rows(f"train {name} forward", "train step", tiles, mm.fwd.route.bcol,
+                        ops.x_blocks(X, spec.nb, B), mm.fwd.route, spec.out_features, per_step,
+                        per_kernel)
+        dxr = spmm_rows(f"train {name} dX", "train step", mm.transposed_tiles(tiles),
+                        mm.bwd.route.bcol, ops.x_blocks(dY, spec.mb, B), mm.bwd.route,
+                        spec.in_features, per_step, per_kernel)
+        parts[name] = dict(spmm_forward_ms=fwd["spmm"]["ms"], spmm_dX_ms=dxr["spmm"]["ms"],
+                           combine_forward_ms=fwd["combine"]["ms"],
+                           combine_dX_ms=dxr["combine"]["ms"])
+        del mm, X, dY
+    del layer0
+    torch.cuda.empty_cache()
+
+    b = train_bound(cfg, model.specs, n_params)
+    emit("train", config=f"{cfg.name}: granite-8b d_model {cfg.d_model}, {cfg.num_heads} heads, "
+         f"{cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, CB-sparse "
+         f"SwiGLU B={cfg.sparse_block} keep {cfg.sparse_keep}, activations {cfg.dtype}, "
+         f"float32 weights, remat {cfg.remat}", layers=cfg.num_layers, layers_cut=None,
+         params=n_params, init_s=t_init,
+         traffic=dict(TRAIN, stream="SyntheticTokenStream, seed 1234", peak_lr=loop.peak_lr,
+                      warmup_steps=loop.warmup_steps),
+         losses=losses, step_ms=step_med, step_runs_ms=step_ms,
+         tokens_per_s=N / (step_med / 1e3), fwd_ms=fwd_ms, bwd_ms=bwd_ms, optimizer_ms=opt_ms,
+         peak_mem_gb=peak_mem_gb, device_busy_ms=busy_ms, profiled_step_ms=prof_wall_ms,
+         idle_share=max(0.0, 1 - busy_ms / prof_wall_ms),
+         idle_share_unprofiled=max(0.0, 1 - busy_ms / step_med),
+         device_ms_by_group=dict(by_group.most_common()),
+         device_ms_by_kernel=dict(by_kernel.most_common(12)), aten_ops_per_step=n_ops,
+         launches_per_step=per_step, expected_launches_per_step=expected,
+         obs_spmm_launches_per_step=obs_launches / TRAIN["steps"],
+         **b, bound_rates="bf16 989 TFLOP/s, sparse 3xTF32 165 TFLOP/s, 3.35 TB/s",
+         runs_bit_equal=runs_bit_equal, impl_vs_reference=impl, bfloat16_vs_float32=bf16_f32,
+         kernel_parts_ms=parts, nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
+    del model
+
+    # -- resume on the card at smoke size: a checkpoint at 5, restored, run to 10 -------
+    t0 = time.perf_counter()
+    small = Model(get_smoke_config(TRAIN["arch"]))
+    loop_s = dataclasses.replace(train_loop_config(10), checkpoint_every=5, warmup_steps=2)
+    stream_s = SyntheticTokenStream(DataConfig(vocab_size=small.cfg.vocab_size,
+                                               seq_len=TRAIN["seq_len"],
+                                               global_batch=TRAIN["global_batch"]))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        straight, hist_s = run_training(small, stream_s, loop_s, checkpointer=ck,
+                                        initial_state=fresh_state(small, seed))
+        ck.wait()
+        mid = ck.restore(fresh_state(small, seed + 3), step=5)
+        resumed, hist_r = run_training(small, stream_s, loop_s, initial_state=mid)
+        steps_saved = ck.list_steps()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(straight.params.parameters(),
+                                                      resumed.params.parameters()))
+    if not bit_equal or steps_saved != [5, 10] or int(mid.step) != 10:
+        fail(f"train_resume: resumed parameters bit-equal {bit_equal}, checkpoints {steps_saved}")
+    emit("train_resume", config=small.cfg.name, steps=10, checkpoint_steps=steps_saved,
+         resumed_from=5, losses=[h["loss"] for h in hist_s],
+         resumed_losses=[h["loss"] for h in hist_r], params_bit_equal=bit_equal,
+         seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # the solve phase: the solvers of repro_torch.solvers on the kernels above
 # ---------------------------------------------------------------------------
 
@@ -1954,6 +2301,8 @@ def main() -> None:
     run_mlp_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
     run_serve(args.seed, per_kernel, launches)
+    torch.cuda.empty_cache()                    # the served model's 14 GB, before training's 56
+    run_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
 
     kernels = []

@@ -1,0 +1,147 @@
+"""Checkpointing: one ``.npy`` per leaf + a JSON manifest, async write.
+
+The port of ``repro.checkpoint.checkpointer``, writing the reference's layout:
+
+    <dir>/step_<N>/
+        manifest.json   — step, and each leaf's file, shape and dtype
+        <i>_<name>.npy  — one file per leaf, in the order and under the names
+                          JAX flattens the reference's state with
+
+A ``training.TrainState`` is written as the reference's ``TrainState``
+(``train_state_to_numpy``: layers stacked, moments as parameter trees), so
+a checkpoint written by ``repro.training.run_training`` restores here and
+one written here restores there. Any other state (a dict, a dataclass, a
+tensor, a numpy array) is flattened the same way.
+
+Writes go through a temp directory + atomic rename, so a crash mid-write
+never corrupts the latest checkpoint (restart scans for the newest COMPLETE
+step). ``save`` can run asynchronously (a thread): the state is first
+copied to the host, synchronously, and the thread writes that copy. The
+train loop updates its state in place, so a thread handed the live tensors
+would write a mixture of two steps.
+
+The reference's elastic restore (``shardings=``, placing each leaf onto
+the current mesh) has no single-device counterpart: only ``None`` is
+accepted until distribution lands (queue A.10).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import errors
+from repro_torch.training.train_state import (
+    TrainState, from_numpy, layout, leaves_with_names, map_leaves, to_numpy,
+    train_state_from_numpy, train_state_to_numpy,
+)
+
+
+def _is_live(state) -> bool:
+    """A port ``TrainState`` whose params are a model (not the reference layout)."""
+    return isinstance(state, TrainState) and isinstance(state.params, torch.nn.Module)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3, async_write: bool = True):
+        self.directory = directory
+        self.keep = keep
+        self.async_write = async_write
+        self._thread: threading.Thread | None = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- save ------------------------------------------------------------
+    def save(self, state: Any, step: int) -> None:
+        host_state = (train_state_to_numpy(state) if _is_live(state)
+                      else map_leaves(to_numpy, state))
+        if self.async_write:
+            self.wait()
+            self._thread = threading.Thread(
+                target=self._write, args=(host_state, step), daemon=True
+            )
+            self._thread.start()
+        else:
+            self._write(host_state, step)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, host_state, step: int) -> None:
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"step": step, "leaves": []}
+        for i, (name, arr) in enumerate(leaves_with_names(host_state)):
+            fname = f"{i:05d}_{name[:80]}.npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"].append(
+                {"file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            )
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # atomic publish
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.list_steps()
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # -- restore -----------------------------------------------------------
+    def list_steps(self) -> list[int]:
+        out = []
+        for d in sorted(os.listdir(self.directory)):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.directory, d, "manifest.json")):
+                    out.append(int(d.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.list_steps()
+        return steps[-1] if steps else None
+
+    def restore(
+        self,
+        example_state: Any,
+        step: int | None = None,
+        shardings: Any | None = None,
+    ) -> Any:
+        """Restore into the structure of ``example_state``, a new state (the
+        example is not written). A live ``TrainState`` comes back on its
+        step's device; elsewhere a tensor leaf comes back as a tensor on its
+        example's device, anything else as numpy."""
+        if shardings is not None:
+            raise errors.InvalidArgError(
+                "elastic restore (shardings=) needs distribution, not ported yet")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        arrays = [np.load(os.path.join(d, entry["file"])) for entry in manifest["leaves"]]
+        like = layout(example_state) if _is_live(example_state) else example_state
+        if len(arrays) != len(leaves_with_names(like)):
+            raise errors.InvalidArgError(
+                f"checkpoint {d} holds {len(arrays)} leaves, the example state "
+                f"{len(leaves_with_names(like))}")
+        if _is_live(example_state):
+            tree = map_leaves(lambda a, _: a, arrays, like=like)
+            return train_state_from_numpy(tree, example_state.step.device)
+
+        def leaf(a, like):
+            return from_numpy(a, like.device) if isinstance(like, torch.Tensor) else a
+
+        return map_leaves(leaf, arrays, like=example_state)

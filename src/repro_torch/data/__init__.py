@@ -1,1 +1,1 @@
-from . import matrices  # noqa: F401
+from . import matrices, synthetic  # noqa: F401

@@ -1,1 +1,1 @@
-"""Launchers: serve (the production mesh, dry run and train come later)."""
+"""Launchers: serve and train (the production mesh and the dry run come later)."""

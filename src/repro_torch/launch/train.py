@@ -1,0 +1,90 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+    python -m repro_torch.launch.train --arch cb-paper                  # on the card
+    python -m repro_torch.launch.train --arch cb-paper --smoke --device cpu --steps 3
+
+The port of ``python -m repro.launch.train``, with its flags plus
+``--device`` (default: CUDA, which raises ``DeviceUnavailableError``
+without a card). Runs the training loop (synthetic token stream,
+checkpointing, fault monitoring) on one device: it prints ``plan_mesh``'s
+plan for that device, and distribution is not ported yet (queue A.10).
+Checkpoints are in the reference's layout, so ``--resume`` also picks up
+one that ``repro.launch.train`` wrote. Weights start from a generator
+seeded 0 on the device.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
+from repro_torch.models import Model
+from repro_torch.runtime import HeartbeatMonitor, plan_mesh
+from repro_torch.training import OPTIMIZERS, TrainLoopConfig, TrainState, run_training
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "lion"])
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "int8_ef"])
+    ap.add_argument("--peak-lr", type=float, default=3e-4)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = Model(cfg, device=args.device)
+    plan = plan_mesh(1, prefer_model=1, global_batch=args.global_batch)
+    print(f"mesh: {dict(zip(plan.axis_names, plan.shape))}  arch: {cfg.name}  "
+          f"device: {model.device} (one device: distribution is not ported yet)")
+
+    stream = SyntheticTokenStream(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                   global_batch=args.global_batch)
+    )
+    ck = Checkpointer(f"{args.ckpt_dir}/{cfg.name}")
+    monitor = HeartbeatMonitor(num_hosts=1)
+    loop_cfg = TrainLoopConfig(
+        total_steps=args.steps,
+        microbatches=args.microbatches,
+        optimizer=args.optimizer,
+        compression=args.compression,
+        peak_lr=args.peak_lr,
+        checkpoint_every=max(10, args.steps // 4),
+        log_every=max(1, args.steps // 20),
+    )
+
+    initial_state = None
+    if args.resume and ck.latest_step() is not None:
+        params = model.init(torch.Generator(device=model.device).manual_seed(0))
+        example = TrainState.create(
+            params, OPTIMIZERS[args.optimizer](),
+            use_compression=args.compression != "none",
+        )
+        initial_state = ck.restore(example)
+        print(f"resumed from step {int(initial_state.step)}")
+
+    state, history = run_training(
+        model, stream, loop_cfg,
+        checkpointer=ck, monitor=monitor, initial_state=initial_state,
+    )
+    ck.wait()
+    print("final:", history[-1])
+    if monitor.stragglers:
+        print(f"stragglers observed: {len(monitor.stragglers)}")
+
+
+if __name__ == "__main__":
+    main()

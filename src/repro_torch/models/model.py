@@ -3,6 +3,7 @@
     model = Model(cfg)                        # on CUDA; Model(cfg, "cpu") on the CPU
     params = model.init(generator)            # an nn.Module of float32 weights
     out = model.forward(params, tokens)
+    loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds)
     state = model.init_decode_state(batch, max_len)
     logits, state = model.decode_step(params, state, tokens, pos)
 
@@ -11,7 +12,9 @@ The dense and VLM families are ported (``transformer``); the others raise
 built at construction: they are structural (numpy only), shared by every
 layer, and bit-equal to the reference's. ``init`` returns the parameters
 alone: the reference's logical-axis tree has no counterpart on one device.
-``params_from_numpy`` brings the reference's parameter tree across.
+``params_from_numpy`` brings the reference's parameter tree across and
+``param_tree`` maps the parameters (or anything with one value per
+parameter, such as an optimizer's moments) back into it.
 """
 from __future__ import annotations
 
@@ -43,6 +46,10 @@ class Model:
         return transformer.forward(params, self.cfg, tokens, specs=self.specs,
                                    impl=self.impl, **kw)
 
+    def loss(self, params, batch, **kw):
+        return transformer.lm_loss(params, self.cfg, batch, specs=self.specs,
+                                   impl=self.impl, **kw)
+
     def init_decode_state(self, batch: int, max_len: int) -> dict:
         return transformer.init_decode_state(self.cfg, batch, max_len, device=self.device)
 
@@ -59,20 +66,75 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> transformer.
     layers are unstacked into ``DecoderLayer``s, bit for bit, on ``device``
     (default CUDA)."""
     transformer.check_family(cfg)
+    return lm_from_tree(tree, device)
+
+
+def lm_from_tree(tree: dict, device=None) -> transformer.LM:
+    """``params_from_numpy`` without the config: the tree alone says the depth
+    (the stacked axis), whether the MLP is sparse (``{"tiles": ...}``
+    projections) and whether the embedding is tied (no ``unembed``)."""
     dev = resolve_device(device)
 
     def t(a):
         return _as_tensor(np.asarray(a)).to(dev)
 
     lyr = tree["layers"]
+    sparse = isinstance(next(iter(lyr["ffn"].values())), dict)
 
     def ffn(i):
-        if cfg.sparse_mlp:
+        if sparse:
             return {k: {"tiles": t(v["tiles"][i])} for k, v in lyr["ffn"].items()}
         return {k: t(v[i]) for k, v in lyr["ffn"].items()}
 
     layers = [transformer.DecoderLayer({k: t(v[i]) for k, v in lyr["attn"].items()}, ffn(i),
                                        t(lyr["norm1"][i]), t(lyr["norm2"][i]))
-              for i in range(cfg.num_layers)]
-    unembed = None if cfg.tie_embeddings else t(tree["unembed"])
+              for i in range(len(lyr["norm1"]))]
+    unembed = t(tree["unembed"]) if "unembed" in tree else None
     return transformer.LM(t(tree["embed"]), layers, t(tree["final_norm"]), unembed)
+
+
+def _path(params: transformer.LM, name: str) -> tuple[list[str], int | None]:
+    """A parameter's path in the reference's tree, and its layer (None: not stacked)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return parts, None
+    i, rest = int(parts[1]), parts[2:]
+    if rest[0] == "ffn" and params.layers[i].sparse:
+        rest = rest + ["tiles"]
+    return ["layers"] + rest, i
+
+
+def param_tree(params: transformer.LM, values=None) -> dict:
+    """The reference's parameter tree over ``values``, one per parameter in
+    ``params.parameters()`` order (default: the parameters themselves). A
+    stacked leaf (every ``layers`` entry) holds the list of its layers'
+    values; keys are sorted, the order in which JAX flattens the tree."""
+    values = list(params.parameters()) if values is None else list(values)
+    tree: dict = {}
+    for (name, _), v in zip(params.named_parameters(), values, strict=True):
+        path, layer = _path(params, name)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if layer is None:
+            node[path[-1]] = v
+        else:
+            node.setdefault(path[-1], []).append(v)
+
+    def ordered(node):
+        return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return ordered(tree)
+
+
+def tree_values(params: transformer.LM, tree: dict) -> list:
+    """The inverse of ``param_tree``: ``tree``'s leaves in ``params.parameters()``
+    order, a stacked leaf indexed at each parameter's layer."""
+    out = []
+    for name, _ in params.named_parameters():
+        path, layer = _path(params, name)
+        node = tree
+        for k in path:
+            node = node[k]
+        out.append(node if layer is None else node[layer])
+    return out

@@ -1,19 +1,22 @@
-"""Decoder-only LM of the dense and VLM families: init, forward, decode.
+"""Decoder-only LM of the dense and VLM families: init, forward, loss, decode.
 
 The port of ``repro.models.transformer`` (``src/repro/models/transformer.py``)
 for ``family in {"dense", "vlm"}``. The reference stacks every layer's
 parameters on a leading axis and scans over them; here each decoder layer
 is an ``nn.Module`` (``DecoderLayer``) in an ``nn.ModuleList``, driven by a
-Python loop. The MoE, SSM, hybrid and encoder-decoder families are not
-ported yet and raise ``errors.InvalidArgError``; the loss and the remat
-policy come with training.
+Python loop, each layer under the remat policy ``cfg.remat`` when autograd
+records. The MoE, SSM, hybrid and encoder-decoder families are not ported
+yet and raise ``errors.InvalidArgError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
@@ -87,8 +90,12 @@ class LM(nn.Module):
         return w.to(cfg.activation_dtype)
 
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        # the rows the reference gathers from its cast table: the cast commutes
-        return self.embed[tokens.long()].to(cfg.activation_dtype)
+        # the rows the reference gathers from its cast table: the cast commutes.
+        # F.embedding, not self.embed[tokens]: the backward of an index is
+        # index_put_(accumulate=True), which may add a repeated token's rows in
+        # another order on every CUDA run; embedding's backward sums them in a
+        # fixed order, so two training runs stay bit-equal.
+        return F.embedding(tokens.long(), self.embed).to(cfg.activation_dtype)
 
 
 def lm_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None) -> LM:
@@ -106,6 +113,35 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=Non
     if not cfg.tie_embeddings:
         unembed = L._normal(generator, (d, cfg.padded_vocab), d**-0.5, dev)
     return LM(embed, layers, torch.ones(d, device=dev), unembed)
+
+
+# "dots" saves the outputs of matrix products without batch dimensions, the
+# counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable:
+# aten.mm / aten.addmm, and aten.bmm with a batch of one, which is how
+# torch.einsum writes a contraction without batch dimensions (the attention
+# projections). Batched products (attention's QK and PV, the sparse MLP's
+# per-tile products) and everything else are recomputed, and so are the CUDA
+# kernels, which run outside aten.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: "none" saves every activation, "full"
+    recomputes the whole layer in the backward, "dots" keeps the products'
+    outputs (``_dots_policy``). Remat changes no number."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def forward(
@@ -127,8 +163,14 @@ def forward(
         h = torch.cat([patch_embeds.to(dt), h], dim=1)
         n_prefix = patch_embeds.shape[1]
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(layer, h):
+        return layer(cfg, h, positions, specs=specs, impl=impl)[0]
+
+    if torch.is_grad_enabled():
+        body = _remat(body, cfg)
     for layer in params.layers:
-        h, _ = layer(cfg, h, positions, specs=specs, impl=impl)
+        h = body(layer, h)
     h = L.rmsnorm(h, params.final_norm)
     if n_prefix:
         h = h[:, n_prefix:, :]
@@ -136,6 +178,37 @@ def forward(
         h = h[:, -1:, :]
     logits = L.mask_pad_logits(h @ params.unembedding(cfg), cfg)
     return LMOutputs(logits=logits, aux_loss=torch.zeros((), device=h.device))
+
+
+def lm_loss(
+    params: LM,
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    specs=None,
+    aux_weight: float = 0.01,
+    z_weight: float = 1e-4,
+    impl: str = "cuda",
+) -> tuple[torch.Tensor, dict]:
+    """``xent + aux_weight * aux + z_weight * mean(logz^2)`` over ``batch``'s
+    ``tokens`` / ``targets`` (and ``patch_embeds`` for the VLM family), the
+    logits in float32 and ``logz`` their logsumexp over the padded vocabulary.
+    Returns ``(loss, {"xent", "aux", "zloss"})``.
+
+    The reference sums ``logits * one_hot(targets)``; here the target logit
+    is gathered. The one-hot form adds exact zeros to it, so the two are
+    bit-equal, and the gather spares a (B, S, Vpad) float32 tensor (400 MB
+    at cb-paper's training shape).
+    """
+    out = forward(params, cfg, batch["tokens"], specs=specs,
+                  patch_embeds=batch.get("patch_embeds"), impl=impl)
+    logits = out.logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    xent = -torch.mean(tgt - logz)
+    zloss = torch.mean(torch.square(logz))
+    loss = xent + aux_weight * out.aux_loss + z_weight * zloss
+    return loss, {"xent": xent, "aux": out.aux_loss, "zloss": zloss}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:

@@ -17,4 +17,5 @@ from .prune import (  # noqa: F401
     block_sparsity_pattern,
     refreeze_due,
     refreeze_spec,
+    refreeze_training_step,
 )

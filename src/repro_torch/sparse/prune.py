@@ -103,3 +103,54 @@ def refreeze_spec(params, spec, *, keep_fraction: float | None = None):
         np.ascontiguousarray(_linear.gather_tiles(a, new_spec))
     ).to(device=tiles.device, dtype=tiles.dtype)
     return new_params, new_spec, True
+
+
+def refreeze_training_step(
+    params,
+    ef,
+    spec,
+    x,
+    y,
+    *,
+    step: int,
+    every_k: int,
+    lr: float = 1e-2,
+    keep_fraction: float | None = None,
+    impl: str = "cuda",
+    group_size: int | None = None,
+    plan=None,
+):
+    """One EF-int8-compressed SGD step with mask refreeze every ``every_k``.
+
+    The dynamic-sparsity training hook of the reference
+    (``src/repro/sparse/prune.py``): the mean squared error of
+    ``cb_linear_apply(params, spec, x)`` against ``y``, its tile gradient
+    through the int8 error-feedback wire format
+    (``training.grad_compression.ef_compress_grads``), plain SGD on the tile
+    stream, and on refreeze steps the mask re-derived from the updated
+    magnitudes. A mask-stable step keeps the exact same spec (and with it
+    the layer's cached device state and combine plans); a drifted mask
+    rebuilds the spec and resets the EF buffers to the new tile shapes.
+    ``params`` and ``ef`` are ``{"tiles": tensor}``; the product runs on the
+    tiles' device with ``impl`` (``"cuda"``: the kernel on a CUDA tensor,
+    its plain version on a CPU one).
+
+    Returns ``(params, ef, spec, loss, changed)``.
+    """
+    from repro_torch.training import grad_compression as _gc
+
+    from . import linear as _linear
+
+    tiles = params["tiles"].detach().requires_grad_(True)
+    pred = _linear.cb_linear_apply({"tiles": tiles}, spec, x, impl=impl, group_size=group_size,
+                                   plan=plan, device=tiles.device)
+    loss = torch.mean((pred.to(torch.float32) - y.to(torch.float32)) ** 2)
+    (g,) = torch.autograd.grad(loss, [tiles])
+    grads, ef = _gc.ef_compress_grads({"tiles": g}, ef)
+    params = {k: (p - lr * grads[k].to(p.dtype)).detach() for k, p in params.items()}
+    changed = False
+    if refreeze_due(step, every_k):
+        params, spec, changed = refreeze_spec(params, spec, keep_fraction=keep_fraction)
+        if changed:
+            ef = _gc.init_ef_buffers(params)
+    return params, ef, spec, loss.detach(), changed

@@ -1,0 +1,86 @@
+"""int8 error-feedback gradient compression.
+
+The port of ``repro.training.grad_compression``
+(``src/repro/training/grad_compression.py``): before the cross-pod gradient
+sum, gradients are quantized to int8 with a per-tensor scale; the
+quantization error is kept in a local error-feedback (EF) buffer and added
+back into the next step's gradient, the standard EF-SGD recipe that keeps
+compressed training convergent.
+
+Here are the building blocks and the single-process round trip
+(``ef_compress_grads``, the wire format without the sum), which the train
+loop's ``compression="int8_ef"`` and ``sparse.prune.refreeze_training_step``
+use. Both ``jnp.round`` and ``torch.round`` round half to even, so the int8
+codes are bit-equal to the reference's. ``compressed_cross_pod_sum``, the
+psum over the ``pod`` axis, needs a collective and waits for distribution
+(queue A.10).
+
+Gradient lists are lists of tensors in one order (a model's
+``parameters()``), as in ``training.optimizer``. The reference quantizes
+each leaf of its parameter tree with one scale, and stacks each layer
+leaf over the layers; the port holds such a leaf as one tensor per layer,
+so ``ef_quantize_stacked`` takes one scale over all of them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    return torch.where(amax > 0, amax / 127.0, 1.0)
+
+
+def _codes(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization. Returns (q, scale)."""
+    xf = x.to(torch.float32)
+    scale = _scale(torch.max(torch.abs(xf)))
+    return _codes(xf, scale), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def ef_quantize(grad: torch.Tensor, ef: torch.Tensor):
+    """Quantize (grad + ef); return (q, scale, new_ef)."""
+    target = grad.to(torch.float32) + ef
+    q, scale = quantize_int8(target)
+    new_ef = target - dequantize_int8(q, scale)
+    return q, scale, new_ef
+
+
+def ef_quantize_stacked(grads: list, efs: list):
+    """``ef_quantize`` of one leaf held as several tensors (a layer-stacked
+    leaf, one tensor per layer) under one scale: (qs, scale, new_efs)."""
+    targets = [g.to(torch.float32) + e for g, e in zip(grads, efs)]
+    scale = _scale(torch.stack([torch.max(torch.abs(t)) for t in targets]).max())
+    qs = [_codes(t, scale) for t in targets]
+    return qs, scale, [t - dequantize_int8(q, scale) for t, q in zip(targets, qs)]
+
+
+def ef_compress_grads(grads, ef_buffers):
+    """Single-process EF-int8 round trip: the wire format without the psum.
+
+    Each gradient passes through the int8 quantize/dequantize of the
+    cross-pod path, with its error-feedback buffer absorbing the rounding
+    error. Returns ``(decompressed_grads, new_ef_buffers)``, lists (or, for
+    dicts of tensors, dicts) in the order given, grads in their own dtype.
+    """
+    if isinstance(grads, dict):
+        out = ef_compress_grads(list(grads.values()), [ef_buffers[k] for k in grads])
+        return dict(zip(grads, out[0])), dict(zip(grads, out[1]))
+    qs = [ef_quantize(g, e) for g, e in zip(grads, ef_buffers)]
+    return ([dequantize_int8(q, s).to(g.dtype) for (q, s, _), g in zip(qs, grads)],
+            [e for _, _, e in qs])
+
+
+def init_ef_buffers(params):
+    """float32 zeros shaped like each parameter (a list, or a dict for a dict)."""
+    if isinstance(params, dict):
+        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]

@@ -311,3 +311,50 @@ def test_engine_tokens_bit_equal_over_two_runs_on_the_card():
         runs.append({r.uid: r.generated for r in eng.run_until_done()})
     assert sorted(runs[0]) == list(range(6)) and all(len(g) == 8 for g in runs[0].values())
     assert runs[0] == runs[1]
+
+
+# -- training on the card (tests/test_torch_training.py) -------------------------------
+
+def _train_on(device, cfg, steps, seed=0):
+    """``run_training`` of smoke-width cb-paper on ``device`` from the weights
+    of a CPU generator seeded ``seed``; returns (state, history, spmm launches)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
+    from repro_torch.models import Model
+    from repro_torch.training import OPTIMIZERS, TrainLoopConfig, TrainState, run_training
+
+    model = Model(cfg, device)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(seed)),
+                              OPTIMIZERS["adamw"]())
+    stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4))
+    before = t_spmm.super_tile_spmm.launches
+    state, hist = run_training(model, stream, TrainLoopConfig(
+        total_steps=steps, log_every=1, warmup_steps=1), initial_state=state)
+    return state, hist, t_spmm.super_tile_spmm.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2.0**-5)])
+def test_cb_paper_training_on_the_card_matches_the_cpu(dtype, tol):
+    """Three steps of smoke-width cb-paper under full remat on the card (the
+    sparse MLP's forward, recompute and dX on ``csrc/cb_spmm.cu`` and the
+    combine) against the same run on the CPU plain path: the losses within
+    the forward's tolerance (``tests/test_torch_models.py``), every parameter
+    within the most three Adam steps at the schedule's lr can move it apart
+    (2 lr a step), a second run on the card bit-equal, and 9 spmm launches a
+    layer a step."""
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("cb-paper").scaled(dtype=dtype, remat="full")
+    card, hist, launches = _train_on("cuda", cfg, 3)
+    cpu, want, _ = _train_on("cpu", cfg, 3)
+    assert launches == 3 * 9 * cfg.num_layers
+    for a, b in zip(hist, want):
+        assert abs(a["loss"] - b["loss"]) <= tol * max(1.0, abs(b["loss"]))
+    lr_sum = sum(h["lr"] for h in want)
+    for p, q in zip(card.params.parameters(), cpu.params.parameters()):
+        assert p.is_cuda and (p.cpu() - q).abs().max().item() <= 2 * lr_sum + 1e-6
+    again, hist2, _ = _train_on("cuda", cfg, 3)
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in hist]
+    assert all(torch.equal(p, q) for p, q in zip(card.params.parameters(),
+                                                 again.params.parameters()))

@@ -374,7 +374,12 @@ def test_port_has_every_module_of_the_slice():
                 "configs/granite_8b.py", "models/__init__.py", "models/layers.py",
                 "models/transformer.py", "models/model.py", "serving/__init__.py",
                 "serving/decode.py", "serving/engine.py", "launch/__init__.py",
-                "launch/serve.py"):
+                "launch/serve.py", "data/synthetic.py", "training/__init__.py",
+                "training/schedule.py", "training/optimizer.py", "training/train_state.py",
+                "training/grad_compression.py", "training/train_loop.py",
+                "checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
+                "runtime/elastic.py", "runtime/fault_tolerance.py", "runtime/faults.py",
+                "launch/train.py"):
         assert mod in have, mod
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu",

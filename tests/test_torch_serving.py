@@ -27,6 +27,7 @@ from repro_torch import errors, obs
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model, params_from_numpy
+from repro_torch.runtime import FlakyStepFn
 from repro_torch.serving import Request, ServingEngine, greedy_decode
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -56,20 +57,6 @@ def _pair(jcfg, tcfg):
 def _tiny_model():
     _, _, model, params = _pair(JConfig(**TINY), ModelConfig(**TINY))
     return model, params
-
-
-class FlakyStepFn:
-    """Wraps a step function; raises ``errors.InjectedFault`` on the listed
-    call indices (0-based), as ``repro.runtime.FlakyStepFn`` does."""
-
-    def __init__(self, fn, fail_on):
-        self.fn, self.fail_on, self.calls = fn, set(fail_on), 0
-
-    def __call__(self, *args):
-        i, self.calls = self.calls, self.calls + 1
-        if i in self.fail_on:
-            raise errors.InjectedFault(errors.reason(errors.INJECTED, f"step call {i}"))
-        return self.fn(*args)
 
 
 # ---------------------------------------------------------------------------
