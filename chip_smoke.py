@@ -41,12 +41,31 @@ the ``nvidia-smi`` line):
    wrapper's ``.launches`` and ``spmv_launch_stats`` times the calls
    (``obs_accounting``); ``spmv_enqueue_ms_obs`` is the enqueue with obs on
    and off in turns, and their difference.
-5. ``matmat`` — the multi-RHS product on the ``banded`` matrix of step 4:
+5. ``dist``, one ``dist_spmv`` line per matrix, rank count and combine —
+   distribution (``repro_torch.core.distributed``) on the ``banded`` and
+   ``power_law`` matrices of step 4, their host ``CBMatrix`` reused:
+   ``shard_streams`` (Alg. 2 over ranks) at D = 1, 2 and 4, then D ranks
+   spawned per D, each joining a process group (one NCCL rank; 2 and 4 gloo
+   ranks sharing ``cuda:0``, since NCCL refuses two ranks on one card: those
+   times are D shards on one card, not D cards) and calling
+   ``distributed_spmv`` over a ``make_mesh`` mesh with ``combine="psum_scatter"``
+   and ``"psum"``. Each rank's launch counters and obs are zeroed before and
+   read after its first call (held equal); its y is held, gathered, against the
+   float64 oracle and the single-device ``cb_spmv`` of step 4 (``KERNEL_TOL``:
+   the cross-shard sum runs in another order), two calls bit-equal, and rank 0
+   holds each kernel and the combine to its plain version at its shard's
+   shapes. Printed: ``dist_spmv_ms`` (rank max, CUDA events as ``time_ms``)
+   beside the single-device ``spmv_ms``, ``collective_ms`` (the collective
+   alone), ``rank_spmv_ms`` (the rank's ``cb_spmv`` alone), the host's time to
+   enqueue each (``*_enqueue_ms``), ``device_nnz``, ``load_imbalance``, every
+   rank's launches from the wrappers and from obs. A
+   rank that fails or outlives ``DIST_TIMEOUT`` fails the run.
+6. ``matmat`` — the multi-RHS product on the ``banded`` matrix of step 4:
    ``super_tile_stream_from_cb`` -> ``.to()`` -> ``ops.cb_spmm`` with 16
    float32 right-hand sides, held against scipy's float64 CSR product, against
    ``impl="reference"``, and against itself (bit-equal); ``torch.sparse`` CSR
    ``A @ X`` is the yardstick.
-6. ``plan``, one line per search — the autotuner (``repro_torch.autotune``)
+7. ``plan``, one line per search — the autotuner (``repro_torch.autotune``)
    on the ``spmv`` lines' matrices, float32, the same seeds:
    ``CBMatrix.plan_for`` in ``mode="heuristic"`` (shape arithmetic only) and
    ``mode="timed"`` (its shortlist timed through ``cb_spmv(impl="cuda")`` with
@@ -64,7 +83,7 @@ the ``nvidia-smi`` line):
    seconds. The ``solve`` phase adds one more ``plan`` line, ``cg planned``:
    ``CBLinearOperator.from_cb(cb, plan="auto")`` on its SPD matrix, CG on it
    converged, within 2 iterations of the unplanned CG, bit-equal over two runs.
-7. ``solve``, one line per run — the solver subsystem (``repro_torch.solvers``)
+8. ``solve``, one line per run — the solver subsystem (``repro_torch.solvers``)
    on the kernels above, every operator built by ``CBLinearOperator.from_cb``
    on its default device (CUDA), float32, B = 16, default thresholds and
    group size: ``cg`` (block-Jacobi, tol 1e-6) on ``spd_banded(2097152,
@@ -90,13 +109,13 @@ the ``nvidia-smi`` line):
    ``host_syncs`` (reads of the loop's stop flag) and ``library_iter_ms`` (the
    same solver over ``torch.sparse`` CSR products, a yardstick). The launch
    counters are zeroed before and read after one counted run of each.
-8. ``mlp_train`` — one training step of the cb-paper MLP at full width
+9. ``mlp_train`` — one training step of the cb-paper MLP at full width
    (granite-8b's d_model 4096 and d_ff 14336, B = 128, keep 0.25, 4096
    tokens): three ``CBSparseLinear`` layers, ``silu(gate(x)) * up(x)`` ->
    ``down``, mean squared error, ``backward()``, SGD. Held against the same
    step in float64 with dense masked weights, two steps bit-equal; the dense
    ``torch.matmul`` step (TF32 off and on) is the yardstick.
-9. ``serve`` — the ``cb-paper`` model (granite-8b at full width: d_model 4096,
+10. ``serve`` — the ``cb-paper`` model (granite-8b at full width: d_model 4096,
    32 heads, 8 KV heads, d_ff 14336, vocab 49152, all 36 layers, CB-sparse
    SwiGLU at B = 128 and keep 0.25, bfloat16 activations, float32 weights from
    a seeded CUDA generator, about 14 GB) built by ``repro_torch.models.Model``
@@ -118,7 +137,7 @@ the ``nvidia-smi`` line):
    and down). One layer's MLP at that shape is timed through the port and
    through ``torch.matmul`` of its dense weights (float32 and bfloat16), a
    yardstick.
-10. ``train`` — the ``cb-paper`` model of step 9 (36 layers, full width, float32
+11. ``train`` — the ``cb-paper`` model of step 10 (36 layers, full width, float32
    weights from a seeded CUDA generator, ``remat="full"``) trained by
    ``repro_torch.training.run_training`` with AdamW on ``launch/train``'s
    traffic: ``SyntheticTokenStream``, global batch 8 x 256 tokens, one
@@ -141,12 +160,13 @@ the ``nvidia-smi`` line):
    X bfloat16, dX with dY float32; gate and down). ``train_resume``:
    ``cb-paper-smoke`` 10 steps with a checkpoint at 5 and 10, restored at 5
    and run to 10, parameters bit-equal to the straight run's.
-11. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+12. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
    runs, one MLP training step, the first served run, the 6 trained steps,
-   summed; ``launches_per_call`` has them apart, keyed by the counted run, the
-   solver runs per iteration, the served run per tick, the training run per
-   step), worst error seen,
+   every rank's first ``distributed_spmv`` call, summed; ``launches_per_call``
+   has them apart, keyed by the counted run, the solver runs per iteration, the
+   served run per tick, the training run per step, a dist run over its ranks),
+   worst error seen,
    time (and the host's time to enqueue one call, ``enqueue_ms``: where it
    is the larger, the row's time is the host's), plain version's time, the bound (the least time the card could
    take: bytes moved over 3.35 TB/s against flops over the rate of the
@@ -154,7 +174,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-12. the ``nvidia-smi`` name and power limit, then the verdict line.
+13. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -176,9 +196,11 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import faulthandler
 import inspect
 import json
 import math
+import multiprocessing
 import pathlib
 import statistics
 import subprocess
@@ -189,12 +211,17 @@ import time
 import numpy as np
 import scipy.sparse
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import CBMatrix, dense_oracle  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    ShardedStreams, distributed_spmv, shard_streams,
+)
 from repro_torch.core.streams import (  # noqa: E402
-    _STREAM_FIELDS as STREAM_FIELDS, build_super_streams, build_super_tile_stream,
+    _STREAM_FIELDS as STREAM_FIELDS, SpMVStreams, build_super_streams, build_super_tile_stream,
     tile_stream_from_cb,
 )
 from repro_torch.data import matrices  # noqa: E402
@@ -206,6 +233,7 @@ from repro_torch.autotune import PlanCache, SearchSettings  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -794,7 +822,228 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
          library_ms=library_ms, library="torch.sparse CSR A @ x",
          err_vs_oracle_rel=oracle_rel, err_vs_reference_abs=ref_err,
          err_vs_library_abs=lib_err, runs_bit_equal=True)
-    return cb, (rows, cols, vals), spmv_ms
+    return cb, (rows, cols, vals), y.cpu(), spmv_ms
+
+
+# ---------------------------------------------------------------------------
+# distribution: distributed_spmv over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+DIST_MATRICES = ("banded", "power_law")
+# (ranks, backend, combines). NCCL refuses two ranks on one card ("Duplicate GPU
+# detected"), so D > 1 shares cuda:0 under gloo: those times are D shards on one
+# card, not D cards.
+DIST_RUNS = ((1, "nccl", ("psum_scatter", "psum")),
+             (2, "gloo", ("psum_scatter", "psum")),
+             (4, "gloo", ("psum_scatter", "psum")))
+DIST_TIMEOUT = 240             # seconds one group of ranks may take, start-up included
+
+
+def check_shard_kernels(tag, local, x) -> None:
+    """Each SpMV kernel and the combine against its plain version at a rank's
+    shard shapes (the flat shard regrouped as ``cb_spmv`` runs it)."""
+    prep = ops._prepare(local, None)
+    s = prep.sup
+    check_kernels_at(tag, s, x)
+    B = s.block_size
+    parts = torch.empty((prep.brow.numel(), B), dtype=torch.float32, device=DEV)
+    nd, npn = s.dense_brow.numel(), s.panel_brow.numel()
+    if s.num_dense_groups:
+        parts[:nd] = dense_pair(s.dense_tiles, ops._gather(x, s.dense_xidx))[0]().reshape(-1, B)
+    if s.num_panel_groups:
+        parts[nd:nd + npn] = panel_pair(s.panel_vals, ops._gather(x, s.panel_xidx))[0]() \
+            .reshape(-1, B)
+    if s.num_coo_groups:
+        parts[nd + npn:] = coo_pair(s.coo_codes, s.coo_vals, ops._gather(x, s.coo_xidx),
+                                    B)[0]().reshape(-1, B)
+    kc, pc = combine_pair(s.m, parts, prep.brow, B, prep.combine)
+    compare("combine", kc(), pc(), f"{tag} T={parts.shape[0]}")
+
+
+def dist_rank(rank: int, job: dict) -> None:
+    """One rank of a ``dist`` group (a spawned process): joins the group, drives
+    ``distributed_spmv`` on each matrix's shard, and saves what it measured."""
+    faulthandler.enable()                   # a crash in native code prints its Python stack
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(job["backend"], init_method=f"file://{job['store']}", rank=rank,
+                            world_size=job["world"])
+    try:
+        out = dist_rank_runs(rank, job)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, pathlib.Path(job["out"]) / f"dist-D{job['world']}-rank{rank}.pt")
+
+
+def dist_rank_runs(rank: int, job: dict) -> dict:
+    D = job["world"]
+    mesh = make_mesh((D,), ("model",))           # CUDA, over the group just joined
+    group = mesh.get_group("model")
+    dev = torch.device("cuda", torch.cuda.current_device())   # distributed_spmv's key
+    lines = {}
+    for name, path in job["matrices"].items():
+        d = torch.load(path, mmap=True, weights_only=True)
+        sh = ShardedStreams(D, SpMVStreams(**d["meta"], **d["fields"]),
+                            d["device_nnz"].numpy())
+        x = d["x"].to(DEV)
+        m = sh.streams.m
+        for combine in job["combines"]:
+            def call():
+                return distributed_spmv(sh, x, mesh, combine=combine)
+
+            # -- the main path, counted: zero the counters, one call, read them ----
+            for w in WRAPPERS.values():
+                w.launches = 0
+            obs.reset()
+            t0 = time.perf_counter()
+            y = call()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counted = {k: w.launches for k, w in WRAPPERS.items()}
+            from_obs = {f: obs.counter("repro.ops.spmv.launches").value(format=f)
+                        for f in ("dense", "panel", "coo")}
+            y_again = call()
+            local = (lambda t: t.to_local()) if isinstance(y, DTensor) else (lambda t: t)
+            full = y
+            if isinstance(y, DTensor):
+                # gathered with c10d: DTensor's full_tensor() crashes under gloo on CUDA
+                full = torch.empty(y.shape, dtype=y.dtype, device=dev)
+                dist.all_gather_into_tensor(full, y.to_local(), group=group)
+            m_pad = -(-m // D) * D
+            if combine == "psum":
+                buf = torch.zeros(m, dtype=torch.float32, device=DEV)
+
+                def coll():
+                    dist.all_reduce(buf, group=group)
+            else:
+                src = torch.zeros(m_pad, dtype=torch.float32, device=DEV)
+                dst = torch.empty(m_pad // D, dtype=torch.float32, device=DEV)
+
+                def coll():
+                    dist.reduce_scatter_tensor(dst, src, group=group)
+            shard = sh.local(rank, dev)
+            lines[name, combine] = dict(
+                launches=counted, obs_launches=from_obs, first_call_s=first_s,
+                present=present_kernels(ops._prepare(shard, None).sup),
+                bit_equal=bool(torch.equal(local(y), local(y_again))),
+                dtensor=isinstance(y, DTensor),
+                placements=[str(p) for p in y.placements] if isinstance(y, DTensor) else None,
+                y=full.cpu() if rank == 0 else None,
+                dist_spmv_ms=time_ms(call), dist_spmv_enqueue_ms=enqueue_ms(call),
+                collective_ms=time_ms(coll), collective_enqueue_ms=enqueue_ms(coll),
+                rank_spmv_ms=time_ms(lambda: ops.cb_spmv(shard, x)),
+                rank_spmv_enqueue_ms=enqueue_ms(lambda: ops.cb_spmv(shard, x)))
+            del y, y_again, full
+        if rank == 0:
+            check_shard_kernels(f"dist {name} D={D} rank 0", sh.local(0, dev), x)
+        del sh, x
+        torch.cuda.empty_cache()
+    return dict(lines=lines, worst_err=dict(worst_err), worst_rel=dict(worst_rel))
+
+
+def run_dist(inputs, seed, launches, dist_launches, runs=DIST_RUNS) -> None:
+    """``shard_streams`` of the spmv lines' banded and power-law matrices at each D,
+    then ``distributed_spmv`` on D spawned ranks, each line checked and timed."""
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for D, backend, combines in runs:
+            meta = {}
+            for name in DIST_MATRICES:
+                cb = inputs[name][0]
+                t0 = time.perf_counter()
+                sh = shard_streams(cb, D)
+                shard_s = time.perf_counter() - t0
+                x_np = np.random.default_rng(seed + 7).standard_normal(cb.shape[1]) \
+                    .astype(np.float32)
+                torch.save(dict(
+                    fields={f: getattr(sh.streams, f) for f in STREAM_FIELDS},
+                    meta={k: getattr(sh.streams, k) for k in
+                          ("block_size", "m", "n", "mb", "colagg_applied")},
+                    device_nnz=torch.from_numpy(sh.device_nnz), x=torch.from_numpy(x_np)),
+                    tmp / f"{name}-D{D}.pt")
+                meta[name] = dict(device_nnz=sh.device_nnz.tolist(),
+                                  load_imbalance=sh.load_imbalance, shard_streams_s=shard_s,
+                                  x=x_np, padded_elements=sh.shard(0).padded_work())
+                del sh
+            job = dict(world=D, backend=backend, combines=list(combines),
+                       store=str(tmp / f"store-D{D}"), out=str(tmp),
+                       matrices={n: str(tmp / f"{n}-D{D}.pt") for n in DIST_MATRICES})
+            procs = [ctx.Process(target=dist_rank, args=(r, job)) for r in range(D)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + DIST_TIMEOUT
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            if alive:
+                fail(f"dist D={D} ({backend}): ranks {alive} still running after {DIST_TIMEOUT} s")
+            bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+            if bad:
+                fail(f"dist D={D} ({backend}): ranks exited with codes {bad}")
+            group_s = time.perf_counter() - t0
+            res = [torch.load(tmp / f"dist-D{D}-rank{r}.pt", weights_only=False)
+                   for r in range(D)]
+            for r in res:
+                for k in WRAPPERS:
+                    worst_err[k] = max(worst_err[k], r["worst_err"][k])
+                    worst_rel[k] = max(worst_rel[k], r["worst_rel"][k])
+            for name in DIST_MATRICES:
+                cb, coo, y_single, spmv_ms, call = inputs[name]
+                for combine in combines:
+                    lines = [r["lines"][name, combine] for r in res]
+                    tag = f"dist {name} D={D} {backend} {combine}"
+                    for rank, ln in enumerate(lines):
+                        for k in ln["present"]:
+                            if ln["launches"][k] < 1:
+                                fail(f"{tag}: rank {rank} has {k} work but did not launch it")
+                        for f in ("dense", "panel", "coo"):
+                            if ln["obs_launches"][f] != ln["launches"][f]:
+                                fail(f"{tag}: rank {rank} obs counts {ln['obs_launches']}, the "
+                                     f"wrappers {ln['launches']}")
+                        if not ln["bit_equal"]:
+                            fail(f"{tag}: rank {rank}'s two runs are not bit-equal")
+                        if ln["dtensor"] != (combine == "psum_scatter" and cb.shape[0] % D == 0):
+                            fail(f"{tag}: rank {rank} returned a DTensor: {ln['dtensor']}")
+                    y = lines[0]["y"]
+                    if y.shape != (cb.shape[0],) or not torch.isfinite(y).all():
+                        fail(f"{tag}: y has shape {tuple(y.shape)} or is not finite")
+                    oracle_rel = oracle_check(tag, *coo, cb.shape, meta[name]["x"], y)
+                    single_err = float((y - y_single).abs().max())
+                    if single_err > KERNEL_TOL * max(1.0, float(y_single.abs().max())):
+                        fail(f"{tag}: y differs from single-device cb_spmv by {single_err:.3e}")
+                    run = f"dist_spmv {name} D={D} {combine}"
+                    for k in WRAPPERS:
+                        n = sum(ln["launches"][k] for ln in lines)
+                        launches[k] += n
+                        if n:
+                            dist_launches.setdefault(k, {})[run] = n
+                    emit("dist_spmv", matrix=call, ranks=D, backend=backend, combine=combine,
+                         one_card=D > 1, device_nnz=meta[name]["device_nnz"],
+                         load_imbalance=meta[name]["load_imbalance"],
+                         padded_elements_rank0=meta[name]["padded_elements"],
+                         dist_spmv_ms=max(ln["dist_spmv_ms"] for ln in lines),
+                         collective_ms=max(ln["collective_ms"] for ln in lines),
+                         rank_spmv_ms=max(ln["rank_spmv_ms"] for ln in lines),
+                         spmv_ms=spmv_ms,
+                         per_rank={k: [ln[k] for ln in lines] for k in (
+                             "dist_spmv_ms", "dist_spmv_enqueue_ms", "collective_ms",
+                             "collective_enqueue_ms", "rank_spmv_ms", "rank_spmv_enqueue_ms",
+                             "first_call_s", "launches", "obs_launches")},
+                         placements=lines[0]["placements"],
+                         host_seconds=dict(shard_streams=meta[name]["shard_streams_s"],
+                                           rank_group=group_s),
+                         err_vs_oracle_rel=oracle_rel, err_vs_single_device_abs=single_err,
+                         tolerance=KERNEL_TOL, runs_bit_equal=True)
+            del res
+    emit("dist_phase", seconds=time.perf_counter() - t_phase,
+         runs=[(D, b, list(c)) for D, b, c in runs])
 
 
 # ---------------------------------------------------------------------------
@@ -2283,15 +2532,22 @@ def main() -> None:
     per_kernel = {k: [] for k in WRAPPERS}
     launches = {k: 0 for k in WRAPPERS}
     plan_inputs = {}                            # the plan phase's matrices, kept from here
+    dist_inputs = {}                            # the dist phase's, host CBMatrix included
     for name, heavy, call, make, shape in make_matrices(args.seed):
-        cb, coo, spmv_ms = run_matrix(name, heavy, call, make, shape, args.seed, per_kernel,
-                                      launches)
+        cb, coo, y, spmv_ms = run_matrix(name, heavy, call, make, shape, args.seed,
+                                         per_kernel, launches)
         if name == "banded":                    # the solver's multi-RHS product, same matrix
             run_matmat(call, cb, coo, args.seed, per_kernel, launches)
         if name in {n for n, _ in PLAN_RUNS}:
             plan_inputs[name] = (coo, shape, call, spmv_ms)
-        del cb, coo
+        if name in DIST_MATRICES:
+            dist_inputs[name] = (cb, coo, y, spmv_ms, call)
+        del cb, coo, y
         torch.cuda.empty_cache()
+    dist_launches = {}                          # kernel -> {dist run: launches, all ranks}
+    run_dist(dist_inputs, args.seed, launches, dist_launches)
+    del dist_inputs
+    torch.cuda.empty_cache()
     run_plan(plan_inputs, args.seed, launches)
     del plan_inputs
     torch.cuda.empty_cache()
@@ -2318,7 +2574,7 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"],
             launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]}
-            | solver_launches.get(k, {}),
+            | solver_launches.get(k, {}) | dist_launches.get(k, {}),
             at=head["matrix"], shape=head["shape"],
             per_matrix=per_kernel[k]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,9 +20,13 @@ copied to the host, synchronously, and the thread writes that copy. The
 train loop updates its state in place, so a thread handed the live tensors
 would write a mixture of two steps.
 
-The reference's elastic restore (``shardings=``, placing each leaf onto
-the current mesh) has no single-device counterpart: only ``None`` is
-accepted until distribution lands (queue A.10).
+Restore is elastic, as the reference's: it reads logical (unsharded)
+arrays, and ``shardings=`` (a tree of ``models.sharding.NamedSharding``
+matching the restored state, e.g. ``sanitize_shardings`` of
+``logical_to_sharding(model.axes(), mesh)``) places each one onto the
+current ``DeviceMesh`` with ``torch.distributed.tensor.distribute_tensor``,
+so a checkpoint written on one device (or by ``repro.checkpoint``)
+restores onto any mesh. Every rank of the mesh calls ``restore``.
 """
 from __future__ import annotations
 
@@ -34,10 +38,12 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch import errors
+from repro_torch.models.sharding import NamedSharding
 from repro_torch.training.train_state import (
-    TrainState, from_numpy, layout, leaves_with_names, map_leaves, to_numpy,
+    TrainState, _children, from_numpy, layout, leaves_with_names, map_leaves, to_numpy,
     train_state_from_numpy, train_state_to_numpy,
 )
 
@@ -45,6 +51,31 @@ from repro_torch.training.train_state import (
 def _is_live(state) -> bool:
     """A port ``TrainState`` whose params are a model (not the reference layout)."""
     return isinstance(state, TrainState) and isinstance(state.params, torch.nn.Module)
+
+
+def _sharding_leaves(tree) -> list[NamedSharding]:
+    """A shardings tree's leaves, in the order ``leaves_with_names`` walks a state."""
+    if isinstance(tree, NamedSharding):
+        return [tree]
+    kids = _children(tree)
+    if kids is None:
+        raise errors.InvalidArgError(f"shardings holds {tree!r} where a NamedSharding belongs")
+    return [leaf for _, child in kids for leaf in _sharding_leaves(child)]
+
+
+def _distribute(state, shardings):
+    """Each leaf of ``state`` placed by its ``NamedSharding`` (a ``DTensor``)."""
+    leaves = [a for _, a in leaves_with_names(state)]
+    shs = _sharding_leaves(shardings)
+    if len(shs) != len(leaves):
+        raise errors.InvalidArgError(
+            f"shardings holds {len(shs)} leaves, the restored state {len(leaves)}")
+    placed = []
+    for a, sh in zip(leaves, shs):
+        t = a if isinstance(a, torch.Tensor) else from_numpy(a, "cpu")
+        placed.append(distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                        list(sh.placements)))
+    return map_leaves(lambda t, _: t, placed, like=state)
 
 
 class Checkpointer:
@@ -121,10 +152,14 @@ class Checkpointer:
         """Restore into the structure of ``example_state``, a new state (the
         example is not written). A live ``TrainState`` comes back on its
         step's device; elsewhere a tensor leaf comes back as a tensor on its
-        example's device, anything else as numpy."""
-        if shardings is not None:
+        example's device, anything else as numpy. With ``shardings`` every
+        leaf comes back as a ``DTensor`` on the shardings' mesh; a live
+        ``TrainState``'s model holds local tensors, so restore its reference
+        layout (``training.train_state.layout``) instead."""
+        if shardings is not None and _is_live(example_state):
             raise errors.InvalidArgError(
-                "elastic restore (shardings=) needs distribution, not ported yet")
+                "a live TrainState's model holds local tensors (tensor parallelism of the "
+                "models is not ported): restore its reference layout with shardings=")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -144,4 +179,5 @@ class Checkpointer:
         def leaf(a, like):
             return from_numpy(a, like.device) if isinstance(like, torch.Tensor) else a
 
-        return map_leaves(leaf, arrays, like=example_state)
+        state = map_leaves(leaf, arrays, like=example_state)
+        return state if shardings is None else _distribute(state, shardings)

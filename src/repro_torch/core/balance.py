@@ -6,11 +6,14 @@ NUMBER of sub-blocks while the total NNZ per thread block is near-equal.
 The block-COO high-level metadata then gets permuted once — enabled by the
 independence property of the 2D structure.
 
-Two deployments of the same algorithm:
+Three deployments of the same algorithm:
 
-  * ``tb_load_balance``    — the paper's: slots = thread blocks x warps.
-  * ``grid_group_balance`` — the stream packer's: slots = the blocks one
+  * ``tb_load_balance``     — the paper's: slots = thread blocks x warps.
+  * ``grid_group_balance``  — the stream packer's: slots = the blocks one
     stream row (one kernel group) carries.
+  * ``device_load_balance`` — scaled up: slots = the ranks of a mesh axis;
+    ``core.distributed`` shards the matrix with near-equal nnz AND equal
+    block count per rank (equal block count == uniform shard shapes).
 """
 from __future__ import annotations
 
@@ -96,6 +99,13 @@ def grid_group_balance(load_per_blk: np.ndarray, group_size: int) -> BalanceResu
     return _heap_assign(load_per_blk, num_groups, group_size)
 
 
+def device_load_balance(nnz_per_blk: np.ndarray, num_devices: int) -> BalanceResult:
+    """Equal block count + near-equal nnz per device (uniform shard shapes)."""
+    nblk = len(nnz_per_blk)
+    per_dev = max(1, -(-nblk // num_devices))
+    return _heap_assign(nnz_per_blk, num_devices, per_dev)
+
+
 def apply_balance(result: BalanceResult, *metadata: np.ndarray, pad_values=None):
     """Permute parallel metadata arrays into slot order.
 
@@ -110,3 +120,19 @@ def apply_balance(result: BalanceResult, *metadata: np.ndarray, pad_values=None)
         dest[mask] = np.asarray(arr)[result.slots[mask]]
         out.append(dest)
     return tuple(out)
+
+
+def tb_load_stddev(nnz_per_blk: np.ndarray, blk_row_idx: np.ndarray | None = None,
+                   warps_per_tb: int = 8) -> tuple[float, float]:
+    """Fig. 4 metric: stddev of per-TB nnz before (naive block order) and
+    after pq balancing. ``blk_row_idx`` is accepted for the reference's
+    signature and not read."""
+    nblk = len(nnz_per_blk)
+    if nblk == 0:
+        return 0.0, 0.0
+    num_tb = -(-nblk // warps_per_tb)
+    padded = np.zeros(num_tb * warps_per_tb, dtype=np.int64)
+    padded[:nblk] = nnz_per_blk
+    naive = padded.reshape(num_tb, warps_per_tb).sum(axis=1)
+    balanced = tb_load_balance(nnz_per_blk, warps_per_tb).group_loads
+    return float(np.std(naive)), float(np.std(balanced))

@@ -1,1 +1,2 @@
-"""Launchers: serve and train (the production mesh and the dry run come later)."""
+"""Launchers: production mesh, serve and train (the dry run comes later)."""
+from .mesh import make_production_mesh  # noqa: F401

@@ -6,8 +6,10 @@
 The port of ``python -m repro.launch.train``, with its flags plus
 ``--device`` (default: CUDA, which raises ``DeviceUnavailableError``
 without a card). Runs the training loop (synthetic token stream,
-checkpointing, fault monitoring) on one device: it prints ``plan_mesh``'s
-plan for that device, and distribution is not ported yet (queue A.10).
+checkpointing, fault monitoring) on one rank and prints ``plan_mesh``'s
+mesh for it. More ranks (``torchrun`` with ``WORLD_SIZE`` > 1) would shard
+the model over ``model``: tensor parallelism of the port's models is not
+ported (ROADMAP A.10b), so they raise ``InvalidArgError``.
 Checkpoints are in the reference's layout, so ``--resume`` also picks up
 one that ``repro.launch.train`` wrote. Weights start from a generator
 seeded 0 on the device.
@@ -15,9 +17,11 @@ seeded 0 on the device.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
+from repro_torch import errors
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
@@ -44,11 +48,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1:
+        raise errors.InvalidArgError(
+            f"WORLD_SIZE={ranks}: training on more than one rank shards the model over "
+            "'model', and tensor parallelism of the port's models is not ported "
+            "(ROADMAP A.10b); run one rank")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=args.device)
-    plan = plan_mesh(1, prefer_model=1, global_batch=args.global_batch)
+    plan = plan_mesh(ranks, prefer_model=1, global_batch=args.global_batch)
     print(f"mesh: {dict(zip(plan.axis_names, plan.shape))}  arch: {cfg.name}  "
-          f"device: {model.device} (one device: distribution is not ported yet)")
+          f"device: {model.device} (one rank)")
 
     stream = SyntheticTokenStream(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,

@@ -13,8 +13,10 @@ float32, cast back). The one kernel path is the CB-sparse MLP:
 ``sparse.linear.cb_linear_apply`` runs ``csrc/cb_spmm.cu`` and the combine
 on the card (their plain versions on the CPU). The JAX model calls its
 layer's default, the reference SpMM (``impl="reference"``,
-``src/repro/sparse/linear.py``), not its Pallas kernel. The reference's
-``sharding.constrain`` calls have no counterpart on one device.
+``src/repro/sparse/linear.py``), not its Pallas kernel. The logical-axis
+trees (``attention_axes``, ``mlp_axes``, ``CACHE_AXES``) are the
+reference's; the reference's ``sharding.constrain`` calls are left out,
+since the port's layers run local tensors.
 """
 from __future__ import annotations
 
@@ -160,6 +162,19 @@ def attention_core(
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    axes = {
+        "wq": ("w_embed", "heads", None),
+        "wk": ("w_embed", "kv", None),
+        "wv": ("w_embed", "kv", None),
+        "wo": ("heads", None, "w_embed"),
+    }
+    if cfg.qk_norm:
+        axes["q_norm"] = (None,)
+        axes["k_norm"] = (None,)
+    return axes
+
+
 def attention_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim
@@ -240,6 +255,11 @@ def _scatter_step(cache: torch.Tensor, kv: torch.Tensor, slot: torch.Tensor) -> 
     return cache
 
 
+CACHE_AXES = {"k": (None, "batch", "kv_seq", "kv", None),
+              "v": (None, "batch", "kv_seq", "kv", None),
+              "pos": ("batch",)}
+
+
 def decode_cache_init(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                       device=None) -> dict:
     """Ring-buffer KV cache; SWA archs only keep the window."""
@@ -271,6 +291,21 @@ def build_mlp_specs(cfg: ModelConfig, seed: int = 42):
                               keep_fraction=cfg.sparse_keep, seed=s)
 
     return {"gate": mk(d, ff, seed), "up": mk(d, ff, seed + 1), "down": mk(ff, d, seed + 2)}
+
+
+def mlp_axes(cfg: ModelConfig) -> dict:
+    if cfg.sparse_mlp:
+        # tiles are small and uniform; replicate (FSDP gains negligible)
+        return {
+            "gate": {"tiles": (None, None, None)},
+            "up": {"tiles": (None, None, None)},
+            "down": {"tiles": (None, None, None)},
+        }
+    return {
+        "w_gate": ("w_embed", "mlp"),
+        "w_up": ("w_embed", "mlp"),
+        "w_down": ("mlp", "w_embed"),
+    }
 
 
 def mlp_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None) -> dict:

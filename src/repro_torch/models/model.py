@@ -2,6 +2,7 @@
 
     model = Model(cfg)                        # on CUDA; Model(cfg, "cpu") on the CPU
     params = model.init(generator)            # an nn.Module of float32 weights
+    axes = model.axes()                       # logical axes, in the reference's layout
     out = model.forward(params, tokens)
     loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds)
     state = model.init_decode_state(batch, max_len)
@@ -11,7 +12,8 @@ The dense and VLM families are ported (``transformer``); the others raise
 ``errors.InvalidArgError``. CB sparsity specs (``cfg.sparse_mlp``) are
 built at construction: they are structural (numpy only), shared by every
 layer, and bit-equal to the reference's. ``init`` returns the parameters
-alone: the reference's logical-axis tree has no counterpart on one device.
+alone; ``axes()`` gives their logical-axis tree in the reference's layout
+(``param_tree``), for ``sharding.logical_to_sharding``.
 ``params_from_numpy`` brings the reference's parameter tree across and
 ``param_tree`` maps the parameters (or anything with one value per
 parameter, such as an optimizer's moments) back into it.
@@ -38,6 +40,9 @@ class Model:
         self.device = resolve_device(device)
         self.impl = impl
         self.specs = build_mlp_specs(cfg) if cfg.sparse_mlp else None
+
+    def axes(self) -> dict:
+        return transformer.lm_axes(self.cfg)
 
     def init(self, generator: torch.Generator) -> transformer.LM:
         return transformer.lm_init(generator, self.cfg, specs=self.specs, device=self.device)

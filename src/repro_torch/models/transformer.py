@@ -98,6 +98,36 @@ class LM(nn.Module):
         return F.embedding(tokens.long(), self.embed).to(cfg.activation_dtype)
 
 
+def _prepend_layers_axis(axes):
+    if isinstance(axes, dict):
+        return {k: _prepend_layers_axis(v) for k, v in axes.items()}
+    return ("w_layers",) + axes
+
+
+def _layer_axes(cfg: ModelConfig) -> dict:
+    return {
+        "attn": L.attention_axes(cfg),
+        "ffn": L.mlp_axes(cfg),
+        "norm1": ("embed",),
+        "norm2": ("embed",),
+    }
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """The logical-axis tree of the parameters, in the reference's layout
+    (``models.model.param_tree``: every ``layers`` leaf stacked on a leading
+    ``w_layers`` axis)."""
+    check_family(cfg)
+    axes = {
+        "embed": ("vocab", "w_embed"),
+        "layers": _prepend_layers_axis(_layer_axes(cfg)),
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("w_embed", "vocab")
+    return axes
+
+
 def lm_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None) -> LM:
     """Random weights from ``generator`` (drawn on its device), on ``device``
     (default CUDA)."""
@@ -214,6 +244,11 @@ def lm_loss(
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     check_family(cfg)
     return L.decode_cache_init(cfg, batch, max_len, cfg.num_layers, device=device)
+
+
+def decode_state_axes(cfg: ModelConfig) -> dict:
+    check_family(cfg)
+    return L.CACHE_AXES
 
 
 @torch.no_grad()

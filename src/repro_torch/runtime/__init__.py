@@ -1,8 +1,5 @@
-"""Runtime: elastic re-mesh planning, fault tolerance and fault injection.
-
-The port of ``repro.runtime`` but ``pipeline`` (GPipe over a ``shard_map``
-stage axis), which waits for distribution (queue A.10).
-"""
+"""Runtime: elastic re-mesh planning, fault tolerance, fault injection and
+GPipe stages over a mesh axis; the port of ``repro.runtime``."""
 from .elastic import MeshPlan, plan_mesh, reshard_instructions  # noqa: F401
 from .fault_tolerance import (  # noqa: F401
     HeartbeatMonitor,
@@ -17,3 +14,4 @@ from .faults import (  # noqa: F401
     lose_host,
     poison_vector,
 )
+from .pipeline import bubble_fraction, pipeline_forward  # noqa: F401

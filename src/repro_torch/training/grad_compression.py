@@ -7,13 +7,12 @@ quantization error is kept in a local error-feedback (EF) buffer and added
 back into the next step's gradient, the standard EF-SGD recipe that keeps
 compressed training convergent.
 
-Here are the building blocks and the single-process round trip
+Here are the building blocks, the single-process round trip
 (``ef_compress_grads``, the wire format without the sum), which the train
 loop's ``compression="int8_ef"`` and ``sparse.prune.refreeze_training_step``
-use. Both ``jnp.round`` and ``torch.round`` round half to even, so the int8
-codes are bit-equal to the reference's. ``compressed_cross_pod_sum``, the
-psum over the ``pod`` axis, needs a collective and waits for distribution
-(queue A.10).
+use, and ``compressed_cross_pod_sum``, the sum over the ``pod`` axis of a
+``torch.distributed`` mesh. Both ``jnp.round`` and ``torch.round`` round
+half to even, so the int8 codes are bit-equal to the reference's.
 
 Gradient lists are lists of tensors in one order (a model's
 ``parameters()``), as in ``training.optimizer``. The reference quantizes
@@ -24,6 +23,10 @@ so ``ef_quantize_stacked`` takes one scale over all of them.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from repro_torch import errors
+from repro_torch.models.sharding import active_mesh
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -60,6 +63,45 @@ def ef_quantize_stacked(grads: list, efs: list):
     scale = _scale(torch.stack([torch.max(torch.abs(t)) for t in targets]).max())
     qs = [_codes(t, scale) for t in targets]
     return qs, scale, [t - dequantize_int8(q, scale) for t, q in zip(targets, qs)]
+
+
+def compressed_cross_pod_sum(grads, ef_buffers, axis_name: str = "pod", *, mesh=None):
+    """EF-int8 sum over the ranks of ``axis_name`` for a list (or dict) of grads.
+
+    Every rank of the axis calls it with its own grads and EF buffers.
+    ``mesh`` (a ``DeviceMesh`` holding ``axis_name``) defaults to the one
+    active under ``models.sharding.axis_rules``. Per leaf: the shared scale
+    from an ``all_reduce(MAX)`` of the local ``amax`` (so the integer sum is
+    well-defined), the int8 codes, their ``all_reduce(SUM)`` as int32 (exact:
+    pod counts are small; the wire format is the int8 payload), dequantized
+    with the shared scale. Returns ``(summed, new_ef)``: the sums in each
+    grad's dtype, the new EF buffers in float32.
+    """
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise errors.InvalidArgError(
+            "compressed_cross_pod_sum needs a mesh: pass mesh= or call it under axis_rules")
+    if axis_name not in tuple(mesh.mesh_dim_names or ()):
+        raise errors.InvalidArgError(f"mesh has no axis {axis_name!r}: {mesh.mesh_dim_names}")
+    if isinstance(grads, dict):
+        out = compressed_cross_pod_sum(list(grads.values()), [ef_buffers[k] for k in grads],
+                                       axis_name, mesh=mesh)
+        return dict(zip(grads, out[0])), dict(zip(grads, out[1]))
+    group = mesh.get_group(axis_name)
+
+    def one(g, ef):
+        target = g.to(torch.float32) + ef
+        amax = torch.max(torch.abs(target))
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        scale = _scale(amax)
+        q = _codes(target, scale)
+        new_ef = target - dequantize_int8(q, scale)
+        summed = q.to(torch.int32)
+        dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+        return (summed.to(torch.float32) * scale).to(g.dtype), new_ef
+
+    out = [one(g, e) for g, e in zip(grads, ef_buffers, strict=True)]
+    return [s for s, _ in out], [e for _, e in out]
 
 
 def ef_compress_grads(grads, ef_buffers):

@@ -358,3 +358,44 @@ def test_cb_paper_training_on_the_card_matches_the_cpu(dtype, tol):
     assert [h["loss"] for h in hist2] == [h["loss"] for h in hist]
     assert all(torch.equal(p, q) for p, q in zip(card.params.parameters(),
                                                  again.params.parameters()))
+
+
+# -- tests/test_torch_distributed.py: distributed_spmv on one NCCL rank ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["psum_scatter", "psum"])
+def test_distributed_spmv_on_one_nccl_rank(tmp_path, combine):
+    """``distributed_spmv`` at D = 1 over a real NCCL group on the card: the
+    kernels on the rank's shard, then the collective; y against single-device
+    ``cb_spmv`` (another order of the same float32 sums) and the float64
+    oracle, the same bits twice, and ``Shard(0)`` under ``psum_scatter``."""
+    _need_card()
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+
+    m = n = 4096
+    rows, cols, vals = matrices.power_law(m, n, seed=7)
+    vals = vals.astype(np.float32)
+    cb = CBMatrix.from_coo(rows, cols, vals, (m, n), block_size=16, val_dtype=np.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32)).cuda()
+    single = tops.cb_spmv(tstreams.build_super_streams(cb).to(), x)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1,), ("model",))
+        sh = tdist.shard_streams(cb, 1)
+        y = tdist.distributed_spmv(sh, x, mesh, combine=combine)
+        again = tdist.distributed_spmv(sh, x, mesh, combine=combine)
+        if combine == "psum_scatter":
+            assert isinstance(y, DTensor) and y.placements == (Shard(0),)
+            y, again = y.full_tensor(), again.full_tensor()
+        assert y.is_cuda and torch.equal(y, again)
+        assert (y - single).abs().max().item() <= 1e-4 * max(1.0, single.abs().max().item())
+        np.testing.assert_allclose(y.cpu().numpy(), dense_oracle(rows, cols, vals, (m, n),
+                                                                 x.cpu().numpy()),
+                                   rtol=3e-4, atol=3e-4)
+    finally:
+        dist.destroy_process_group()

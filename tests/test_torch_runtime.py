@@ -23,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed
+from torch.distributed.tensor import DTensor, Shard
 
 from repro import runtime as jrt
 from repro.checkpoint import Checkpointer as JCheckpointer
@@ -36,6 +38,8 @@ from repro.training import TrainState as JState, run_training as j_run
 from repro_torch import errors, runtime as trt
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import NamedSharding
 from repro_torch.core import CBMatrix
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.models import Model
@@ -223,8 +227,22 @@ def test_checkpointer_atomicity_and_gc(tmp_path):
     got = ck.restore({"w": torch.zeros(4), "step": torch.tensor(0)})
     assert torch.equal(got["w"], torch.arange(4.0)) and int(got["step"]) == 3
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp") and "9" not in f]
-    with pytest.raises(errors.InvalidArgError, match="shardings"):
-        ck.restore(state, shardings={"w": None})
+    # elastic restore: every leaf placed on a one-rank CPU mesh, a DTensor
+    # whose full tensor is the plain restore's; a tree of another shape refused
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                                         rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device_type="cpu")
+        placed = ck.restore({"w": torch.zeros(4), "step": torch.tensor(0)},
+                            shardings={"w": NamedSharding(mesh, ("data",)),
+                                       "step": NamedSharding(mesh, ())})
+        assert isinstance(placed["w"], DTensor) and placed["w"].placements == (Shard(0),)
+        assert torch.equal(placed["w"].full_tensor(), torch.arange(4.0))
+        assert int(placed["step"].full_tensor()) == 3
+        with pytest.raises(errors.InvalidArgError, match="shardings"):
+            ck.restore(state, shardings={"w": NamedSharding(mesh, ())})
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(errors.InvalidArgError, match="leaves"):
         ck.restore({"w": torch.zeros(4)})
     with pytest.raises(FileNotFoundError):
@@ -321,12 +339,20 @@ def _launch(*args, cwd):
                           cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_launch_train_end_to_end_on_the_cpu(tmp_path):
+def test_launch_train_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     out = _launch("--arch", "cb-paper", "--smoke", "--device", "cpu", "--steps", "3",
                   "--ckpt-dir", str(tmp_path), cwd=tmp_path)
     assert out.returncode == 0, out.stderr
     assert "mesh: {'data': 1, 'model': 1}  arch: cb-paper-smoke" in out.stdout
-    assert "distribution is not ported" in out.stdout
+    assert "(one rank)" in out.stdout
+    # more than one rank (torchrun's WORLD_SIZE) would mean tensor parallelism
+    from repro_torch.launch import train
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(errors.InvalidArgError, match="A.10b"):
+        train.main(["--arch", "cb-paper", "--smoke", "--device", "cpu", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "two")])
+    monkeypatch.delenv("WORLD_SIZE")
     final = out.stdout.strip().splitlines()[-1]
     assert final.startswith("final:") and "'step': 2" in final
     ck = Checkpointer(str(tmp_path / "cb-paper-smoke"))

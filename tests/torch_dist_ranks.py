@@ -1,0 +1,258 @@
+"""Rank processes of the port's multi-rank tests on the CPU (gloo), and their launcher.
+
+    python tests/torch_dist_ranks.py <job.json> <rank>
+
+runs one rank of a job that ``Ranks`` wrote: it joins a gloo process
+group through a file store beside the job (no port to collide with other
+test workers), runs the job's task on the port alone (torch, numpy and
+``repro_torch``; no JAX, so a rank starts in a few seconds), and saves what
+it saw with ``torch.save`` for the test to compare with the JAX package.
+``Ranks.wait`` bounds the whole job by a timeout and kills every rank
+that outlives it, so a hung collective fails one test and not the run.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+SPMV_SHAPES = ((160, 160), (150, 144))        # D-divisible and ragged m (tests/test_distributed.py)
+COMBINES = ("psum", "psum_scatter")
+PIPE_MICROBATCHES = (4, 8)
+
+
+# ---------------------------------------------------------------------------
+# inputs every rank and the tests build alike, from seeds
+# ---------------------------------------------------------------------------
+
+def spmv_inputs(shape):
+    """(rows, cols, vals float32, x float32) of the power-law matrix the JAX
+    package's distribution tests use, seed 7."""
+    from repro_torch.data import matrices
+
+    m, n = shape
+    r, c, v = matrices.power_law(m, n, seed=7)
+    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    return r, c, v.astype(np.float32), x
+
+
+def pod_grads(pod: int):
+    """Pod ``pod``'s gradients and EF buffers: different on every pod."""
+    rng = np.random.default_rng(100 + pod)
+    grads = {"w": rng.standard_normal((3, 5)).astype(np.float32),
+             "b": (rng.standard_normal(7) * 1e-3).astype(np.float32)}
+    efs = {k: (rng.standard_normal(g.shape) * 1e-3).astype(np.float32)
+           for k, g in grads.items()}
+    return grads, efs
+
+
+def pipe_inputs(S: int, M: int):
+    """Stage weights (S, 8, 8) and microbatches (M, 2, 8), float32."""
+    rng = np.random.default_rng(10 * S + M)
+    ws = (rng.standard_normal((S, 8, 8)) / np.sqrt(8)).astype(np.float32)
+    mbs = rng.standard_normal((M, 2, 8)).astype(np.float32)
+    return ws, mbs
+
+
+def stage_fn(w, h):
+    return torch.tanh(h @ w)
+
+
+# ---------------------------------------------------------------------------
+# the tasks
+# ---------------------------------------------------------------------------
+
+def _spmv(world: int) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import CBMatrix
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world,), ("model",), device_type="cpu")
+    out = {}
+    for shape in SPMV_SHAPES:
+        r, c, v, x = spmv_inputs(shape)
+        cb = CBMatrix.from_coo(r, c, v, shape, block_size=16, val_dtype=np.float32)
+        sh = tdist.shard_streams(cb, world)
+        for combine in COMBINES:
+            for impl in ("reference", "cuda"):
+                y = tdist.distributed_spmv(sh, torch.from_numpy(x), mesh, impl=impl,
+                                           device="cpu", combine=combine)
+                again = tdist.distributed_spmv(sh, torch.from_numpy(x), mesh, impl=impl,
+                                               device="cpu", combine=combine)
+                is_d = isinstance(y, DTensor)
+                out[f"{shape[0]}x{shape[1]}/{combine}/{impl}"] = dict(
+                    full=(y.full_tensor() if is_d else y).clone(),
+                    local=(y.to_local() if is_d else y).clone(),
+                    dtensor=is_d, placements=[str(p) for p in y.placements] if is_d else None,
+                    bit_equal_rerun=bool(torch.equal(
+                        y.to_local() if is_d else y, again.to_local() if is_d else again)),
+                    device_nnz=sh.device_nnz.tolist(), load_imbalance=sh.load_imbalance)
+    return out
+
+
+def _compressed(world: int) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import axis_rules
+    from repro_torch.training.grad_compression import compressed_cross_pod_sum
+
+    mesh = make_mesh((world,), ("pod",), device_type="cpu")
+    grads, efs = pod_grads(dist.get_rank())
+    g = {k: torch.from_numpy(a) for k, a in grads.items()}
+    e = {k: torch.from_numpy(a) for k, a in efs.items()}
+    summed, new_ef = compressed_cross_pod_sum(g, e, "pod", mesh=mesh)
+    with axis_rules(mesh):                      # the mesh of the active rules, by default
+        summed2, new_ef2 = compressed_cross_pod_sum(g, e)
+    same = all(torch.equal(summed[k], summed2[k]) and torch.equal(new_ef[k], new_ef2[k])
+               for k in g)
+    return dict(summed=summed, new_ef=new_ef, active_mesh_same=same)
+
+
+def _pipeline(world: int) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import pipeline_forward
+
+    mesh = make_mesh((world,), ("pod",), device_type="cpu")
+    out = {}
+    for M in PIPE_MICROBATCHES:
+        ws, mbs = pipe_inputs(world, M)
+        ws_t, mbs_t = torch.from_numpy(ws), torch.from_numpy(mbs)
+        got = pipeline_forward(stage_fn, mesh, axis="pod")(ws_t, mbs_t)
+        seq = []
+        for i in range(M):                      # the stages applied one after another
+            h = mbs_t[i]
+            for s in range(world):
+                h = stage_fn(ws_t[s], h)
+            seq.append(h)
+        out[M] = dict(outputs=got, sequential=torch.stack(seq))
+    return out
+
+
+def _sharding(world: int, ckpt_dir: str, arch: str) -> dict:
+    """Elastic restore of a checkpoint written by the JAX package onto a
+    (data=world, model=1) mesh, ``make_mesh``'s checks, and ``constrain``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch import errors
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model, axis_rules, constrain, logical_to_sharding
+    from repro_torch.models.sharding import NamedSharding, sanitize_shardings
+    from repro_torch.training.train_state import leaves_with_names
+
+    out = {}
+    try:
+        make_mesh((world + 1,), ("data",), device_type="cpu")
+    except errors.InvalidArgError as e:
+        out["wrong_world_size"] = str(e)
+    mesh = make_mesh((world, 1), ("data", "model"), device_type="cpu")
+    out["mesh"] = dict(names=list(mesh.mesh_dim_names), shape=list(mesh.shape))
+
+    ck = Checkpointer(ckpt_dir)
+    example = json.loads((pathlib.Path(ckpt_dir) / "example.json").read_text())
+    like = _tree_of_arrays(example)
+    plain = ck.restore(like)
+    model = Model(get_smoke_config(arch), device="cpu")
+    shardings = sanitize_shardings(plain, logical_to_sharding(model.axes(), mesh), mesh)
+    placed = ck.restore(like, shardings=shardings)
+    leaves = []
+    for (name, a), (_, t) in zip(leaves_with_names(plain), leaves_with_names(placed)):
+        leaves.append(dict(name=name, plain=torch.from_numpy(np.asarray(a)),
+                           local=t.to_local().clone(), full=t.full_tensor().clone(),
+                           placements=[str(p) for p in t.placements],
+                           dtensor=isinstance(t, DTensor)))
+    out["leaves"] = leaves
+
+    x = torch.arange(4 * world * 3, dtype=torch.float32).reshape(4 * world, 3)
+    with axis_rules(mesh):
+        out["constrain_local_same"] = constrain(x, "batch", None) is x
+        d = distribute_tensor(x, mesh, list(NamedSharding(mesh, (None, None)).placements))
+        c = constrain(d, "batch", None)
+        out["constrain_placements"] = [str(p) for p in c.placements]
+        out["constrain_local"] = c.to_local().clone()
+    out["constrain_no_mesh_same"] = constrain(x, "batch") is x
+    return out
+
+
+def _tree_of_arrays(example):
+    """A restore example from its JSON description: {name: [shape, dtype]} nested."""
+    if isinstance(example, dict) and "shape" not in example:
+        return {k: _tree_of_arrays(v) for k, v in example.items()}
+    return np.zeros(example["shape"], example["dtype"])
+
+
+TASKS = {"spmv": _spmv, "compressed": _compressed, "pipeline": _pipeline,
+         "sharding": _sharding}
+
+
+def rank_main(job_path: str, rank: int) -> None:
+    job = json.loads(pathlib.Path(job_path).read_text())
+    world = job["world"]
+    dist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
+                            world_size=world)
+    try:
+        results = {t: TASKS[t](world, **job["params"].get(t, {})) for t in job["tasks"]}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(results, pathlib.Path(job["out"]) / f"rank{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# the launcher the tests call
+# ---------------------------------------------------------------------------
+
+class Ranks:
+    """``world`` rank processes of ``tasks``, started at once."""
+
+    def __init__(self, tasks, world: int, workdir: pathlib.Path, params=None):
+        workdir = workdir.resolve()         # a file:// URL takes an absolute path
+        workdir.mkdir(parents=True, exist_ok=True)
+        self.workdir, self.world = workdir, world
+        job = workdir / "job.json"
+        job.write_text(json.dumps(dict(tasks=list(tasks), world=world, params=params or {},
+                                       store=str(workdir / "store"), out=str(workdir))))
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        # each rank logs to a file: a rank blocked on a full pipe would hang the others
+        self.logs = [workdir / f"rank{r}.log" for r in range(world)]
+        self.procs = []
+        for r, log in enumerate(self.logs):
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, __file__, str(job), str(r)], env=env, stdout=f,
+                    stderr=subprocess.STDOUT))
+
+    def wait(self, timeout: float) -> list[dict]:
+        """Every rank's results; fails on a rank that fails or outlives ``timeout``."""
+        deadline = time.monotonic() + timeout
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{self.world} ranks still running after {timeout} s")
+        finally:
+            self.kill()
+        bad = [(r, p.returncode, log.read_text()[-3000:]) for r, (p, log) in
+               enumerate(zip(self.procs, self.logs)) if p.returncode != 0]
+        assert not bad, bad
+        return [torch.load(self.workdir / f"rank{r}.pt", weights_only=False)
+                for r in range(self.world)]
+
+    def kill(self) -> None:
+        """End every rank still running (a job left behind when another failed)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+if __name__ == "__main__":
+    rank_main(sys.argv[1], int(sys.argv[2]))
