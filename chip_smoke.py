@@ -195,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import dataclasses
 import faulthandler
 import inspect
@@ -234,9 +235,9 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, encdec  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import Request, ServingEngine, greedy_decode  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
 from repro_torch.training import (  # noqa: E402
@@ -2000,6 +2001,268 @@ def run_train(seed, per_kernel, launches):
 
 
 # ---------------------------------------------------------------------------
+# the families phase: the MoE, SSM, hybrid and encoder-decoder families served
+# ---------------------------------------------------------------------------
+
+# (arch, config: "full" or the overrides of a cut, what was cut and why, Model options)
+LLAMA4_EXPERT_SHARD = (0, 16)  # the experts one of 16 expert-parallel chips holds: 8 of 128
+FAMILIES = (
+    ("mamba2-130m", "full", None, {}),
+    ("zamba2-2.7b", "full", None, {}),
+    ("whisper-small", "full", None, {}),
+    ("mixtral-8x7b", {"num_layers": 8},
+     {"num_layers": "32 -> 8: 46.7 G parameters are 187 GB of float32 weights; 8 layers "
+                    "(11.9 G, 47.5 GB) fit one card's 80 GB beside a layer's bf16 casts"}, {}),
+    ("llama4-maverick-400b-a17b", {"num_layers": 2},
+     {"num_layers": "48 -> 2: one period of the interleave (moe_every=2), a dense layer "
+                    "and an MoE layer with the shared expert",
+      "experts_held": "128 -> 8 in the MoE layer: the share of one of 16 expert-parallel "
+                      "chips (Model(expert_shard=(0, 16))); the router scores all 128, and "
+                      "a token routed to an expert held elsewhere adds nothing here (one "
+                      "MoE layer's 128 experts are 64 GB of float32 weights)"},
+     {"expert_shard": LLAMA4_EXPERT_SHARD}),
+)
+FAMILY_LOSS_TOKENS = 512       # mamba2 / zamba2: Model.loss on one sequence at ssm_chunk 128
+WHISPER_FRAMES_BATCH = 4       # precompute_cross on seeded frames (4, 1500, 768)
+SMOKE_TOL = 2.0**-5            # CUDA vs CPU at the smoke config (bfloat16), relative to the
+                               # logits' scale: the bfloat16 bound of the CPU parity tests
+
+
+def family_config(arch: str, how):
+    cfg = get_config(arch)
+    return cfg if how == "full" else cfg.scaled(**how)
+
+
+def two_layers(cfg):
+    """The config at full width with 2 layers (hybrid: one Mamba2 pair and the
+    shared block after it; encdec: 2 + 2), float32 activations."""
+    kw = dict(num_layers=2, dtype="float32")
+    if cfg.family == "hybrid":
+        kw["attn_every"] = 2
+    if cfg.family == "encdec":
+        kw["encoder_layers"] = 2
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        kw["num_layers"] = cfg.moe_every
+    return cfg.scaled(**kw)
+
+
+def family_frames(cfg, batch: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((batch, cfg.num_frames, cfg.d_model), generator=g,
+                       device=DEV).to(cfg.activation_dtype)
+
+
+def teacher_forced(model, params, toks, frames=None) -> torch.Tensor:
+    """Every position's logits through ``decode_step`` (whisper over
+    ``precompute_cross`` of ``frames``)."""
+    B, S = toks.shape
+    st = model.init_decode_state(B, S + 4)
+    if frames is not None:
+        st["cross"] = encdec.precompute_cross(params, model.cfg, frames)
+    out = []
+    for t in range(S):
+        pos = torch.full((B,), t, dtype=torch.int32, device=toks.device)
+        lg, st = model.decode_step(params, st, toks[:, t:t + 1], pos)
+        out.append(lg)
+    return torch.stack(out, dim=1)
+
+
+def family_decode_vs_forward(cfg, model_kw: dict, seed: int) -> dict:
+    """Teacher-forced decode against forward, float32, 2 layers, full width."""
+    cfg2 = two_layers(cfg)
+    model = Model(cfg2, **model_kw)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed + 1))
+    rng = np.random.default_rng(seed + 43)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(DEV)
+    frames = family_frames(cfg2, 2, seed + 2) if cfg.family == "encdec" else None
+    kw = {"frames": frames} if frames is not None else {}
+    with torch.no_grad():
+        full = model.forward(params, toks, **kw).logits
+    dec = teacher_forced(model, params, toks, frames)
+    excess = ((dec - full).abs() - (DECODE_TOL + DECODE_TOL * full.abs())).max().item()
+    if excess > 0 or not torch.isfinite(dec).all():
+        fail(f"family {cfg.name}: teacher-forced decode differs from forward beyond "
+             f"rtol=atol={DECODE_TOL}")
+    return dict(layers=cfg2.num_layers, dtype="float32",
+                max_abs_err=(dec - full).abs().max().item(), rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+def family_cuda_vs_cpu(arch: str, seed: int) -> dict:
+    """One ``forward`` and one ``decode_step`` of the smoke config on the card
+    against the port on the CPU, the same weights."""
+    cfg = get_smoke_config(arch)
+    cpu, card = Model(cfg, "cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(seed))
+    p_card = copy.deepcopy(p_cpu).to(DEV)
+    rng = np.random.default_rng(seed + 44)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.standard_normal((2, cfg.num_frames, cfg.d_model))
+                                  .astype(np.float32)).to(cfg.activation_dtype)
+    out = {}
+    for what in ("forward", "decode_step"):
+        res = []
+        for model, params, dev in ((cpu, p_cpu, "cpu"), (card, p_card, DEV)):
+            f = None if frames is None else frames.to(dev)
+            t = toks.to(dev)
+            with torch.no_grad():
+                if what == "forward":
+                    kw = {"frames": f} if f is not None else {}
+                    lg = model.forward(params, t, **kw).logits
+                else:
+                    lg = teacher_forced(model, params, t[:, :1], f)
+            res.append(lg.float().cpu())
+        scale = max(1.0, res[0].abs().max().item())
+        err = (res[1] - res[0]).abs().max().item()
+        if not err <= SMOKE_TOL * scale:
+            fail(f"family {arch}: smoke {what} on CUDA vs CPU differs by {err:.3e} > "
+                 f"{SMOKE_TOL} * {scale:.3e}")
+        out[what] = dict(max_abs_err=err, tolerance=SMOKE_TOL * scale)
+    return out
+
+
+def family_tick_bytes(cfg, params, state, B: int) -> dict:
+    """Bytes one tick must read: every float32 weight the decode path casts or
+    reads (of the embedding only the gathered rows; the hybrid's shared block
+    once per invocation; not the encoder), and the whole decode state."""
+    def nb(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def leaves(node):
+        return [x for v in node.values() for x in leaves(v)] if isinstance(node, dict) else [node]
+
+    parts = {"embed_rows": B * cfg.d_model * 4, "state": nb(leaves(state))}
+    if cfg.family == "encdec":                  # cross k/v come from the state, not wk / wv
+        parts["weights"] = nb(params.decoder.parameters()) + nb(
+            [params.final_norm, params.unembed]) - nb(
+            [lp["cross"][k] for lp in params.decoder for k in ("wk", "wv")])
+    else:
+        parts["weights"] = nb(params.parameters()) - params.embed.numel() * 4
+    if cfg.family == "hybrid":
+        G = cfg.num_layers // cfg.attn_every
+        parts["shared_block_rereads"] = (G - 1) * nb(params.shared.parameters())
+    return parts
+
+
+def run_family(arch: str, how, reduced, model_kw: dict, seed: int) -> None:
+    t_phase = time.perf_counter()
+    cfg = family_config(arch, how)
+    decode_check = family_decode_vs_forward(cfg, model_kw, seed)
+    torch.cuda.empty_cache()
+    smoke_check = family_cuda_vs_cpu(arch, seed)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = Model(cfg, **model_kw)                       # CUDA by default
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+
+    # -- the main path, counted: launch/serve's traffic; no CB kernel may launch -------
+    for w in WRAPPERS.values():
+        w.launches = 0
+    run1 = serve_once(model, params)
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    if any(counted.values()):
+        fail(f"family {arch}: CB kernels launched on a path that runs none: {counted}")
+    run2 = serve_once(model, params)
+    if run2["generated"] != run1["generated"]:
+        fail(f"family {arch}: two runs of the same requests generated different tokens")
+
+    # -- one tick from a mid-sequence state: enqueue, and the device in a CUDA graph -----
+    B = SERVE["slots"]
+    state = model.init_decode_state(B, SERVE["max_len"])
+    rng = np.random.default_rng(seed + 41)
+    prefill = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 8)).astype(np.int32)).to(DEV)
+    for t in range(prefill.shape[1]):
+        _, state = model.decode_step(params, state, prefill[:, t:t + 1],
+                                     torch.full((B,), t, dtype=torch.int32, device=DEV))
+    tok = prefill[:, -1:]
+    pos = torch.full((B,), prefill.shape[1], dtype=torch.int32, device=DEV)
+
+    def one_tick():
+        return model.decode_step(params, state, tok, pos)
+
+    enq = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_tick()
+        enq.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    device_tick_ms = graph_ms(one_tick)                  # a capture failure ends the run
+    logits, _ = one_tick()
+    if not (torch.isfinite(logits).all() and logits.shape == (B, cfg.padded_vocab)):
+        fail(f"family {arch}: logits {tuple(logits.shape)} or non-finite")
+
+    parts = family_tick_bytes(cfg, params, state, B)
+    tick_bytes = sum(parts.values())
+    b_ms, b_by = bound(tick_bytes, 2 * B * (parts["weights"] // 4))
+    extras = {}
+    if cfg.family in ("ssm", "hybrid"):
+        # -- C.8 at full width: the loss over one sequence at the real chunk ---------------
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, FAMILY_LOSS_TOKENS + 1))
+                                .astype(np.int32)).to(DEV)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        loss_ms = []
+        for _ in range(2):                      # the first call, then a warm one
+            params.zero_grad(set_to_none=True)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss, _ = model.loss(params, batch)
+            loss.backward()
+            b.record()
+            torch.cuda.synchronize()
+            loss_ms.append(a.elapsed_time(b))
+            bad = [n for n, p in params.named_parameters() if not torch.isfinite(p.grad).all()]
+            if bad or not torch.isfinite(loss):
+                fail(f"family {arch}: loss {loss.item()} or non-finite gradients: {bad[:5]}")
+        extras["loss"] = dict(tokens=FAMILY_LOSS_TOKENS, ssm_chunk=cfg.ssm_chunk,
+                              loss=loss.item(), loss_ms=loss_ms[1], loss_ms_first=loss_ms[0],
+                              grads_finite=True, remat=cfg.remat)
+        params.zero_grad(set_to_none=True)
+    if cfg.family == "encdec":
+        # -- the encoder at full width, then greedy decode over its cross caches ----------
+        frames = family_frames(cfg, WHISPER_FRAMES_BATCH, seed + 3)
+        encode_ms = solve_ms(lambda: encdec.precompute_cross(params, cfg, frames))
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (WHISPER_FRAMES_BATCH, 4))
+                                   .astype(np.int32)).to(DEV)
+        outs = [greedy_decode(model, params, prompts, SERVE["max_new"], frames=frames)
+                for _ in range(2)]
+        if not torch.equal(outs[0], outs[1]) or outs[0].shape != (WHISPER_FRAMES_BATCH,
+                                                                  SERVE["max_new"]):
+            fail(f"family {arch}: greedy decode over precompute_cross not bit-equal on rerun")
+        extras["encoder"] = dict(frames=list(frames.shape), encode_ms=encode_ms,
+                                 greedy_tokens=outs[0][0].tolist())
+
+    tick_med = statistics.median(run2["tick_ms"])
+    emit("family", arch=arch, family=cfg.family, config=how if isinstance(how, str) else "cut",
+         reduced=reduced, model_options=model_kw, layers=cfg.num_layers, d_model=cfg.d_model,
+         activations=cfg.dtype, weights="float32", params=n_params,
+         params_gb=n_params * 4 / 1e9, init_s=t_init,
+         traffic=dict(SERVE, arch=arch, prompts="np.random.default_rng(0), 2-11 tokens"),
+         ticks=run2["engine"].ticks, tokens=run2["tokens"],
+         wall_s=[run1["wall_s"], run2["wall_s"]], tokens_per_s=run2["tokens"] / run2["wall_s"],
+         tick_ms=tick_med, tick_ms_p90=float(np.percentile(run2["tick_ms"], 90)),
+         tick_enqueue_ms=statistics.median(enq), device_tick_ms=device_tick_ms,
+         host_share=1 - device_tick_ms / tick_med, bound_ms=b_ms, bound_by=b_by,
+         tick_bytes=tick_bytes, tick_bytes_parts=parts, cb_launches=counted,
+         runs_bit_equal=True, decode_vs_forward=decode_check, smoke_cuda_vs_cpu=smoke_check,
+         **extras, nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
+    del params, model, state
+    torch.cuda.empty_cache()
+
+
+def run_families(seed: int) -> None:
+    t_phase = time.perf_counter()
+    for arch, how, reduced, model_kw in FAMILIES:
+        run_family(arch, how, reduced, model_kw, seed)
+    emit("families_phase", seconds=time.perf_counter() - t_phase, configs=len(FAMILIES))
+
+
+# ---------------------------------------------------------------------------
 # the solve phase: the solvers of repro_torch.solvers on the kernels above
 # ---------------------------------------------------------------------------
 
@@ -2560,6 +2823,7 @@ def main() -> None:
     torch.cuda.empty_cache()                    # the served model's 14 GB, before training's 56
     run_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
+    run_families(args.seed)
 
     kernels = []
     for k in WRAPPERS:

@@ -12,13 +12,15 @@ the model over ``model``: tensor parallelism of the port's models is not
 ported (ROADMAP A.10b), so they raise ``InvalidArgError``.
 Checkpoints are in the reference's layout, so ``--resume`` also picks up
 one that ``repro.launch.train`` wrote. Weights start from a generator
-seeded 0 on the device.
+seeded 0 on the device. The encoder-decoder's batches carry stub frame
+embeddings (``FramesStream``), which the reference's launcher lacks.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import numpy as np
 import torch
 
 from repro_torch import errors
@@ -28,6 +30,22 @@ from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.models import Model
 from repro_torch.runtime import HeartbeatMonitor, plan_mesh
 from repro_torch.training import OPTIMIZERS, TrainLoopConfig, TrainState, run_training
+
+
+class FramesStream:
+    """A token stream whose batches also hold the encoder's input: stub frame
+    embeddings (B, num_frames, d_model), float32 normals seeded by the step
+    (the audio frontend is a stub, as in the reference)."""
+
+    def __init__(self, stream, cfg):
+        self.stream, self.cfg = stream, cfg
+
+    def batch(self, step: int) -> dict:
+        b = self.stream.batch(step)
+        rng = np.random.default_rng(step)
+        b["frames"] = rng.standard_normal(
+            (len(b["tokens"]), self.cfg.num_frames, self.cfg.d_model)).astype(np.float32)
+        return b
 
 
 def main(argv=None) -> None:
@@ -64,6 +82,8 @@ def main(argv=None) -> None:
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                    global_batch=args.global_batch)
     )
+    if cfg.family == "encdec":
+        stream = FramesStream(stream, cfg)
     ck = Checkpointer(f"{args.ckpt_dir}/{cfg.name}")
     monitor = HeartbeatMonitor(num_hosts=1)
     loop_cfg = TrainLoopConfig(

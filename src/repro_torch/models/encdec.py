@@ -1,0 +1,205 @@
+"""Whisper-style encoder-decoder backbone.
+
+The port of ``repro.models.encdec`` (``src/repro/models/encdec.py``). The
+conv/audio frontend is a stub, as in the reference: the caller hands in
+frame embeddings (B, num_frames, d_model). The encoder is bidirectional
+self-attention; the decoder causal self-attention plus cross-attention to
+the encoder states. RoPE on both stacks, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streams import resolve_device
+
+from . import layers as L
+from .transformer import LMOutputs, _prepend_layers_axis, embed_tokens, param_dict, remat_block
+
+
+class EncDecLM(nn.Module):
+    """The encoder-decoder's float32 parameters, named by the reference's
+    tree: ``embed``, ``encoder.<i>.{attn, mlp, norm1, norm2}``,
+    ``decoder.<i>.{self, cross, mlp, norm1, norm2, norm3}``, ``enc_norm``,
+    ``final_norm``, ``unembed``."""
+
+    def __init__(self, embed, encoder: list[dict], decoder: list[dict], enc_norm, final_norm,
+                 unembed):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.encoder = nn.ModuleList([param_dict(p) for p in encoder])
+        self.decoder = nn.ModuleList([param_dict(p) for p in decoder])
+        self.enc_norm = nn.Parameter(enc_norm)
+        self.final_norm = nn.Parameter(final_norm)
+        self.unembed = nn.Parameter(unembed)
+
+
+def _cross_attention_init(generator, cfg: ModelConfig, device=None) -> dict:
+    return L.attention_init(generator, cfg, device)
+
+
+def _cross_attention_apply(params, cfg: ModelConfig, x, enc_kv, positions):
+    """q from the decoder's x; k/v precomputed from the encoder states."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, params["q_norm"])
+    out = L.attention_core(q, enc_kv["k"], enc_kv["v"], causal=False, chunk=cfg.attn_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+
+def cross_kv(params, cfg: ModelConfig, enc: torch.Tensor) -> dict:
+    dt = enc.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc, params["wv"].to(dt))
+    return {"k": k, "v": v}
+
+
+def _enc_layer_init(generator, cfg: ModelConfig, dev) -> dict:
+    d = cfg.d_model
+    return {"attn": L.attention_init(generator, cfg, dev),
+            "mlp": L.mlp_init(generator, cfg.scaled(sparse_mlp=False), device=dev),
+            "norm1": torch.ones(d, device=dev), "norm2": torch.ones(d, device=dev)}
+
+
+def _dec_layer_init(generator, cfg: ModelConfig, dev) -> dict:
+    d = cfg.d_model
+    return {"self": L.attention_init(generator, cfg, dev),
+            "cross": _cross_attention_init(generator, cfg, dev),
+            "mlp": L.mlp_init(generator, cfg.scaled(sparse_mlp=False), device=dev),
+            "norm1": torch.ones(d, device=dev), "norm2": torch.ones(d, device=dev),
+            "norm3": torch.ones(d, device=dev)}
+
+
+def encdec_axes(cfg: ModelConfig) -> dict:
+    mcfg = cfg.scaled(sparse_mlp=False)
+    enc_axes = {"attn": L.attention_axes(cfg), "mlp": L.mlp_axes(mcfg),
+                "norm1": ("embed",), "norm2": ("embed",)}
+    dec_axes = {"self": L.attention_axes(cfg), "cross": L.attention_axes(cfg),
+                "mlp": L.mlp_axes(mcfg),
+                "norm1": ("embed",), "norm2": ("embed",), "norm3": ("embed",)}
+    return {
+        "embed": ("vocab", "w_embed"),
+        "encoder": _prepend_layers_axis(enc_axes),
+        "decoder": _prepend_layers_axis(dec_axes),
+        "enc_norm": ("embed",), "final_norm": ("embed",),
+        "unembed": ("w_embed", "vocab"),
+    }
+
+
+def encdec_init(generator: torch.Generator, cfg: ModelConfig, specs=None,
+                device=None) -> EncDecLM:
+    """Random float32 weights from ``generator``, on ``device`` (default CUDA)."""
+    del specs
+    dev = resolve_device(device)
+    d = cfg.d_model
+    embed = L.embed_init(generator, cfg.padded_vocab, d, device=dev)
+    enc = [_enc_layer_init(generator, cfg, dev) for _ in range(cfg.encoder_layers)]
+    dec = [_dec_layer_init(generator, cfg, dev) for _ in range(cfg.num_layers)]
+    unembed = L._normal(generator, (d, cfg.padded_vocab), d**-0.5, dev)
+    return EncDecLM(embed, enc, dec, torch.ones(d, device=dev), torch.ones(d, device=dev),
+                    unembed)
+
+
+def encode(params: EncDecLM, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, T, d) -> encoder states (B, T, d)."""
+    h = frames.to(cfg.activation_dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    mcfg = cfg.scaled(sparse_mlp=False)
+
+    def body(lp, h):
+        attn, _ = L.attention_apply(lp["attn"], cfg, L.rmsnorm(h, lp["norm1"]),
+                                    positions=positions, causal=False)
+        h = h + attn
+        return h + L.mlp_apply(lp["mlp"], mcfg, L.rmsnorm(h, lp["norm2"]))
+
+    body = remat_block(body, cfg)
+    for lp in params.encoder:
+        h = body(lp, h)
+    return L.rmsnorm(h, params.enc_norm)
+
+
+def forward(params: EncDecLM, cfg: ModelConfig, tokens, *, specs=None,
+            frames: torch.Tensor | None = None, patch_embeds=None,
+            last_only: bool = False) -> LMOutputs:
+    del patch_embeds, specs
+    dt = cfg.activation_dtype
+    enc = encode(params, cfg, frames)
+    h = embed_tokens(params.embed, tokens, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    mcfg = cfg.scaled(sparse_mlp=False)
+
+    def body(lp, h):
+        attn, _ = L.attention_apply(lp["self"], cfg, L.rmsnorm(h, lp["norm1"]),
+                                    positions=positions, causal=True)
+        h = h + attn
+        kv = cross_kv(lp["cross"], cfg, enc)
+        h = h + _cross_attention_apply(lp["cross"], cfg, L.rmsnorm(h, lp["norm2"]), kv,
+                                       positions)
+        return h + L.mlp_apply(lp["mlp"], mcfg, L.rmsnorm(h, lp["norm3"]))
+
+    body = remat_block(body, cfg)
+    for lp in params.decoder:
+        h = body(lp, h)
+    h = L.rmsnorm(h, params.final_norm)
+    if last_only:
+        h = h[:, -1:, :]
+    logits = L.mask_pad_logits(h @ params.unembed.to(dt), cfg)
+    return LMOutputs(logits=logits, aux_loss=torch.zeros((), device=h.device))
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """The decoder's self-attention caches and zero cross k/v (the encoder's
+    are written in by ``precompute_cross``, or left zero as the reference's
+    engine serves them)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_frames, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = cfg.activation_dtype
+    return {"self": L.decode_cache_init(cfg, batch, max_len, cfg.num_layers, device=dev),
+            "cross": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                      "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def decode_state_axes(cfg: ModelConfig) -> dict:
+    return {
+        "self": L.CACHE_AXES,
+        "cross": {"k": (None, "batch", "frames", "kv", None),
+                  "v": (None, "batch", "frames", "kv", None)},
+    }
+
+
+@torch.no_grad()
+def precompute_cross(params: EncDecLM, cfg: ModelConfig, frames: torch.Tensor) -> dict:
+    """Run the encoder once and stack every decoder layer's cross k/v
+    (L, B, T, Hkv, dh) for decoding."""
+    enc = encode(params, cfg, frames)
+    kvs = [cross_kv(lp["cross"], cfg, enc) for lp in params.decoder]
+    return {"k": torch.stack([kv["k"] for kv in kvs]), "v": torch.stack([kv["v"] for kv in kvs])}
+
+
+@torch.no_grad()
+def decode_step(params: EncDecLM, cfg: ModelConfig, state: dict, tokens, pos, *,
+                specs=None) -> tuple[torch.Tensor, dict]:
+    """One token for every sequence. ``state`` is not written: the self-attention
+    caches are copied once and this step's k/v written into the copy; the
+    returned state holds the same cross k/v."""
+    dt = cfg.activation_dtype
+    h = embed_tokens(params.embed, tokens, cfg)
+    positions = pos[:, None]
+    mcfg = cfg.scaled(sparse_mlp=False)
+    ck, cv = state["self"]["k"].clone(), state["self"]["v"].clone()
+    xk, xv = state["cross"]["k"], state["cross"]["v"]
+    for i, lp in enumerate(params.decoder):
+        attn, _ = L.attention_apply(lp["self"], cfg, L.rmsnorm(h, lp["norm1"]),
+                                    positions=positions, causal=True,
+                                    cache={"k": ck[i], "v": cv[i], "pos": pos})
+        h = h + attn
+        h = h + _cross_attention_apply(lp["cross"], cfg, L.rmsnorm(h, lp["norm2"]),
+                                       {"k": xk[i], "v": xv[i]}, positions)
+        h = h + L.mlp_apply(lp["mlp"], mcfg, L.rmsnorm(h, lp["norm3"]))
+    new_state = {"self": {"k": ck, "v": cv, "pos": state["self"]["pos"] + 1},
+                 "cross": state["cross"]}
+    h = L.rmsnorm(h, params.final_norm)
+    logits = L.mask_pad_logits((h @ params.unembed.to(dt))[:, 0, :], cfg)
+    return logits, new_state

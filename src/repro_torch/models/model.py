@@ -3,17 +3,18 @@
     model = Model(cfg)                        # on CUDA; Model(cfg, "cpu") on the CPU
     params = model.init(generator)            # an nn.Module of float32 weights
     axes = model.axes()                       # logical axes, in the reference's layout
-    out = model.forward(params, tokens)
-    loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds)
+    out = model.forward(params, tokens)       # encdec: frames=...
+    loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds, frames)
     state = model.init_decode_state(batch, max_len)
     logits, state = model.decode_step(params, state, tokens, pos)
 
-The dense and VLM families are ported (``transformer``); the others raise
-``errors.InvalidArgError``. CB sparsity specs (``cfg.sparse_mlp``) are
-built at construction: they are structural (numpy only), shared by every
-layer, and bit-equal to the reference's. ``init`` returns the parameters
-alone; ``axes()`` gives their logical-axis tree in the reference's layout
-(``param_tree``), for ``sharding.logical_to_sharding``.
+Every family of the reference is ported: dense, MoE, SSM and VLM
+(``transformer``), hybrid (``hybrid``) and encoder-decoder (``encdec``); an
+unknown family raises ``errors.InvalidArgError``. CB sparsity specs
+(``cfg.sparse_mlp``) are built at construction: they are structural (numpy
+only), shared by every layer, and bit-equal to the reference's. ``init``
+returns the parameters alone; ``axes()`` gives their logical-axis tree in
+the reference's layout (``param_tree``), for ``sharding.logical_to_sharding``.
 ``params_from_numpy`` brings the reference's parameter tree across and
 ``param_tree`` maps the parameters (or anything with one value per
 parameter, such as an optimizer's moments) back into it.
@@ -23,108 +24,177 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streams import _as_tensor, resolve_device
 
-from . import transformer
+from . import encdec, hybrid, moe, transformer
 from .layers import build_mlp_specs
 
 
 class Model:
     """``impl`` is that of the sparse MLP's products (``cb_linear_apply``):
-    ``"cuda"`` (the kernels) or ``"reference"`` (the plain oracle)."""
+    ``"cuda"`` (the kernels) or ``"reference"`` (the plain oracle).
+    ``expert_shard=(i, n)`` (MoE family only) makes ``init`` give each MoE
+    layer shard i of n of its experts, as one chip of n in expert
+    parallelism holds them; the reference has no such option."""
 
-    def __init__(self, cfg: ModelConfig, device=None, *, impl: str = "cuda"):
+    def __init__(self, cfg: ModelConfig, device=None, *, impl: str = "cuda",
+                 expert_shard: tuple[int, int] | None = None):
         transformer.check_family(cfg)
+        if expert_shard is not None:
+            if cfg.family != "moe":
+                raise errors.InvalidArgError(f"expert_shard needs the moe family, not "
+                                             f"{cfg.family!r}")
+            moe.expert_range(cfg, expert_shard)          # checks the shard
         self.cfg = cfg
         self.device = resolve_device(device)
         self.impl = impl
+        self.expert_shard = expert_shard
         self.specs = build_mlp_specs(cfg) if cfg.sparse_mlp else None
+        self._mod = {"hybrid": hybrid, "encdec": encdec}.get(cfg.family, transformer)
 
     def axes(self) -> dict:
-        return transformer.lm_axes(self.cfg)
+        if self._mod is transformer:
+            return transformer.lm_axes(self.cfg)
+        if self._mod is hybrid:
+            return hybrid.hybrid_axes(self.cfg)
+        return encdec.encdec_axes(self.cfg)
 
-    def init(self, generator: torch.Generator) -> transformer.LM:
-        return transformer.lm_init(generator, self.cfg, specs=self.specs, device=self.device)
+    def init(self, generator: torch.Generator):
+        if self._mod is transformer:
+            return transformer.lm_init(generator, self.cfg, specs=self.specs,
+                                       device=self.device, expert_shard=self.expert_shard)
+        if self._mod is hybrid:
+            return hybrid.hybrid_init(generator, self.cfg, device=self.device)
+        return encdec.encdec_init(generator, self.cfg, device=self.device)
 
     def forward(self, params, tokens, **kw) -> transformer.LMOutputs:
-        return transformer.forward(params, self.cfg, tokens, specs=self.specs,
-                                   impl=self.impl, **kw)
+        if self._mod is transformer:
+            return transformer.forward(params, self.cfg, tokens, specs=self.specs,
+                                       impl=self.impl, **kw)
+        return self._mod.forward(params, self.cfg, tokens, **kw)
 
     def loss(self, params, batch, **kw):
-        return transformer.lm_loss(params, self.cfg, batch, specs=self.specs,
-                                   impl=self.impl, **kw)
+        if self._mod is transformer:
+            return transformer.lm_loss(params, self.cfg, batch, specs=self.specs,
+                                       impl=self.impl, **kw)
+        fwd_kw = {"frames": batch["frames"]} if self.cfg.family == "encdec" else {}
+        logits = self.forward(params, batch["tokens"], **fwd_kw).logits
+        xent, _ = transformer.cross_entropy(logits, batch["targets"])
+        return xent, {"xent": xent}
 
     def init_decode_state(self, batch: int, max_len: int) -> dict:
-        return transformer.init_decode_state(self.cfg, batch, max_len, device=self.device)
+        return self._mod.init_decode_state(self.cfg, batch, max_len, device=self.device)
+
+    def decode_state_axes(self) -> dict:
+        return self._mod.decode_state_axes(self.cfg)
 
     def decode_step(self, params, state, tokens, pos):
-        return transformer.decode_step(params, self.cfg, state, tokens, pos,
-                                       specs=self.specs, impl=self.impl)
+        if self._mod is transformer:
+            return transformer.decode_step(params, self.cfg, state, tokens, pos,
+                                           specs=self.specs, impl=self.impl)
+        return self._mod.decode_step(params, self.cfg, state, tokens, pos)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> transformer.LM:
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     """The port's parameters from the reference's ``Model.init`` tree as numpy
-    arrays: ``embed``, ``layers`` stacked on axis 0 (``attn.wq`` (L, d, H, dh),
-    ..., ``ffn.{gate,up,down}.tiles`` (L, nt, B, B) or ``ffn.w_*``, ``norm1`` /
-    ``norm2`` (L, d)), ``final_norm`` and, unless tied, ``unembed``. The
-    layers are unstacked into ``DecoderLayer``s, bit for bit, on ``device``
-    (default CUDA)."""
+    arrays, bit for bit, on ``device`` (default CUDA): leaves stacked on a
+    layer axis are unstacked into per-layer modules (``lm_from_tree``)."""
     transformer.check_family(cfg)
     return lm_from_tree(tree, device)
 
 
-def lm_from_tree(tree: dict, device=None) -> transformer.LM:
-    """``params_from_numpy`` without the config: the tree alone says the depth
-    (the stacked axis), whether the MLP is sparse (``{"tiles": ...}``
-    projections) and whether the embedding is tied (no ``unembed``)."""
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked subtree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _depth(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
+def lm_from_tree(tree: dict, device=None):
+    """``params_from_numpy`` without the config: the tree alone says the
+    family and its depth (the stacked axes), whether the MLP is sparse
+    (``{"tiles": ...}`` projections) and whether the embedding is tied (no
+    ``unembed``). ``encoder`` / ``decoder`` is encdec; ``mamba`` / ``shared``
+    / ``lora`` is hybrid; ``layers.mixer`` is ssm; ``layers.{dense, moe}`` is
+    llama4's interleave; ``layers.ffn.router`` is moe; the rest dense / VLM."""
     dev = resolve_device(device)
 
     def t(a):
+        if isinstance(a, dict):
+            return {k: t(v) for k, v in a.items()}
         return _as_tensor(np.asarray(a)).to(dev)
 
-    lyr = tree["layers"]
-    sparse = isinstance(next(iter(lyr["ffn"].values())), dict)
+    def unstack(sub) -> list:
+        """A stacked subtree's layers, split on the host."""
+        return [_index(sub, i) for i in range(_depth(sub))]
 
-    def ffn(i):
-        if sparse:
-            return {k: {"tiles": t(v["tiles"][i])} for k, v in lyr["ffn"].items()}
-        return {k: t(v[i]) for k, v in lyr["ffn"].items()}
+    if "encoder" in tree:
+        return encdec.EncDecLM(t(tree["embed"]), [t(p) for p in unstack(tree["encoder"])],
+                               [t(p) for p in unstack(tree["decoder"])], t(tree["enc_norm"]),
+                               t(tree["final_norm"]), t(tree["unembed"]))
+    if "mamba" in tree:
+        return hybrid.HybridLM(t(tree["embed"]), [t(p) for p in unstack(tree["mamba"])],
+                               t(tree["shared"]), t(tree["lora"]), t(tree["final_norm"]),
+                               t(tree["unembed"]))
 
-    layers = [transformer.DecoderLayer({k: t(v[i]) for k, v in lyr["attn"].items()}, ffn(i),
-                                       t(lyr["norm1"][i]), t(lyr["norm2"][i]))
-              for i in range(len(lyr["norm1"]))]
+    def layer(p: dict):
+        if "mixer" in p:
+            return transformer.param_dict(t(p))
+        if "moe" in p:
+            return torch.nn.ModuleDict({
+                "dense": torch.nn.ModuleList([layer(d) for d in unstack(p["dense"])]),
+                "moe": layer(p["moe"])})
+        p = t(p)
+        return transformer.DecoderLayer(p["attn"], p["ffn"], p["norm1"], p["norm2"])
+
+    layers = [layer(p) for p in unstack(tree["layers"])]
     unembed = t(tree["unembed"]) if "unembed" in tree else None
     return transformer.LM(t(tree["embed"]), layers, t(tree["final_norm"]), unembed)
 
 
-def _path(params: transformer.LM, name: str) -> tuple[list[str], int | None]:
-    """A parameter's path in the reference's tree, and its layer (None: not stacked)."""
+def _path(params, name: str) -> tuple[list[str], tuple[int, ...]]:
+    """A parameter's path in the reference's tree and its indices on the
+    stacked axes (a layer; a llama4 group, then its dense layer): the name's
+    integer parts are the indices, the rest the path."""
     parts = name.split(".")
-    if parts[0] != "layers":
-        return parts, None
-    i, rest = int(parts[1]), parts[2:]
-    if rest[0] == "ffn" and params.layers[i].sparse:
-        rest = rest + ["tiles"]
-    return ["layers"] + rest, i
+    path = [p for p in parts if not p.isdigit()]
+    idx = tuple(int(p) for p in parts if p.isdigit())
+    if path[:2] == ["layers", "ffn"] and getattr(params.layers[idx[0]], "sparse", False):
+        path.append("tiles")
+    return path, idx
 
 
-def param_tree(params: transformer.LM, values=None) -> dict:
+def param_tree(params, values=None) -> dict:
     """The reference's parameter tree over ``values``, one per parameter in
     ``params.parameters()`` order (default: the parameters themselves). A
-    stacked leaf (every ``layers`` entry) holds the list of its layers'
-    values; keys are sorted, the order in which JAX flattens the tree."""
+    stacked leaf holds the list of its layers' values (a list of lists for a
+    llama4 group's dense layers); keys are sorted, the order in which JAX
+    flattens the tree."""
     values = list(params.parameters()) if values is None else list(values)
     tree: dict = {}
     for (name, _), v in zip(params.named_parameters(), values, strict=True):
-        path, layer = _path(params, name)
+        path, idx = _path(params, name)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        if layer is None:
+        if not idx:
             node[path[-1]] = v
-        else:
-            node.setdefault(path[-1], []).append(v)
+            continue
+        lst = node.setdefault(path[-1], [])
+        for i in idx[:-1]:
+            while len(lst) <= i:
+                lst.append([])
+            lst = lst[i]
+        assert len(lst) == idx[-1], (name, len(lst))
+        lst.append(v)
 
     def ordered(node):
         return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
@@ -132,14 +202,16 @@ def param_tree(params: transformer.LM, values=None) -> dict:
     return ordered(tree)
 
 
-def tree_values(params: transformer.LM, tree: dict) -> list:
+def tree_values(params, tree: dict) -> list:
     """The inverse of ``param_tree``: ``tree``'s leaves in ``params.parameters()``
     order, a stacked leaf indexed at each parameter's layer."""
     out = []
     for name, _ in params.named_parameters():
-        path, layer = _path(params, name)
+        path, idx = _path(params, name)
         node = tree
         for k in path:
             node = node[k]
-        out.append(node if layer is None else node[layer])
+        for i in idx:
+            node = node[i]
+        out.append(node)
     return out

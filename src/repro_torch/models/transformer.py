@@ -1,12 +1,21 @@
-"""Decoder-only LM of the dense and VLM families: init, forward, loss, decode.
+"""Decoder-only LM of the dense, MoE, SSM and VLM families: init, forward,
+loss, decode.
 
-The port of ``repro.models.transformer`` (``src/repro/models/transformer.py``)
-for ``family in {"dense", "vlm"}``. The reference stacks every layer's
-parameters on a leading axis and scans over them; here each decoder layer
-is an ``nn.Module`` (``DecoderLayer``) in an ``nn.ModuleList``, driven by a
-Python loop, each layer under the remat policy ``cfg.remat`` when autograd
-records. The MoE, SSM, hybrid and encoder-decoder families are not ported
-yet and raise ``errors.InvalidArgError``.
+The port of ``repro.models.transformer`` (``src/repro/models/transformer.py``).
+The reference stacks every layer's parameters on a leading axis and scans
+over them; here each scan step is an ``nn.Module`` in an ``nn.ModuleList``,
+driven by a Python loop, each under the remat policy ``cfg.remat`` when
+autograd records:
+
+* dense / VLM / MoE: a ``DecoderLayer`` (attention, then the dense or
+  CB-sparse SwiGLU, or ``moe.moe_apply``);
+* SSM (mamba2): a ``ParameterDict`` ``{"mixer": ..., "norm1": ...}``;
+* MoE interleaved every k layers (llama4): a ``ModuleDict`` group of k-1
+  dense ``DecoderLayer``s and one MoE ``DecoderLayer``, the reference's
+  ``_group_body``.
+
+The hybrid (zamba2) and encoder-decoder (whisper) families wrap these
+layers in ``hybrid.py`` / ``encdec.py``.
 """
 from __future__ import annotations
 
@@ -23,8 +32,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streams import resolve_device
 
 from . import layers as L
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "encdec")
 
 
 class LMOutputs(NamedTuple):
@@ -35,23 +46,34 @@ class LMOutputs(NamedTuple):
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise errors.InvalidArgError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet; "
-            f"ported: {', '.join(PORTED_FAMILIES)}")
+            f"unknown family {cfg.family!r} ({cfg.name}); known: {', '.join(PORTED_FAMILIES)}")
+
+
+def param_dict(tree: dict) -> nn.ParameterDict:
+    """A nested dict of tensors as nested ``ParameterDict``s: ``params["a"]["b"]``
+    reads as in the reference's functional layers, and the parameters are
+    named by their paths (``a.b``)."""
+    return nn.ParameterDict({k: param_dict(v) if isinstance(v, dict) else nn.Parameter(v)
+                             for k, v in tree.items()})
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm residual layer: attention, then the dense or CB-sparse SwiGLU.
+    """Pre-norm residual layer: attention, then the dense or CB-sparse SwiGLU,
+    or the MoE FFN (``ffn`` holds a ``router``).
 
-    Built from ``layers.attention_init`` / ``layers.mlp_init``'s dicts (a
-    sparse projection is ``{"tiles": t}``); the tensors become parameters.
+    Built from ``layers.attention_init`` and ``layers.mlp_init``'s or
+    ``moe.moe_init``'s dicts (a sparse projection is ``{"tiles": t}``); the
+    tensors become parameters.
     """
 
-    def __init__(self, attn: dict, ffn: dict, norm1: torch.Tensor, norm2: torch.Tensor):
+    def __init__(self, attn: dict, ffn: dict, norm1: torch.Tensor, norm2: torch.Tensor,
+                 first_expert: int = 0):
         super().__init__()
-        self.attn = nn.ParameterDict({k: nn.Parameter(v) for k, v in attn.items()})
-        self.sparse = isinstance(next(iter(ffn.values())), dict)
-        self.ffn = nn.ParameterDict({k: nn.Parameter(v["tiles"] if self.sparse else v)
-                                     for k, v in ffn.items()})
+        self.attn = param_dict(attn)
+        self.moe = "router" in ffn
+        self.first_expert = first_expert        # the MoE layer's experts held: from here on
+        self.sparse = all(isinstance(v, dict) and set(v) == {"tiles"} for v in ffn.values())
+        self.ffn = param_dict({k: v["tiles"] for k, v in ffn.items()} if self.sparse else ffn)
         self.norm1 = nn.Parameter(norm1)
         self.norm2 = nn.Parameter(norm2)
 
@@ -63,20 +85,27 @@ class DecoderLayer(nn.Module):
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor, *,
                 specs=None, cache: dict | None = None, impl: str = "cuda"):
-        """Returns (h, new_cache); ``cache`` as in ``layers.attention_apply``."""
+        """Returns (h, aux, new_cache); ``cache`` as in ``layers.attention_apply``,
+        ``aux`` the MoE layer's load-balancing loss (0 for a dense layer)."""
         attn_out, new_cache = L.attention_apply(
             dict(self.attn.items()), cfg, L.rmsnorm(h, self.norm1), positions=positions,
             causal=True, cache=cache, window=cfg.swa_window)
         h = h + attn_out
         hn = L.rmsnorm(h, self.norm2)
-        return h + L.mlp_apply(self.ffn_params(), cfg, hn, specs=specs, impl=impl), new_cache
+        if self.moe:
+            ffn_out, aux = moe_mod.moe_apply(self.ffn, cfg, hn, self.first_expert)
+        else:
+            ffn_out = L.mlp_apply(self.ffn_params(), cfg, hn, specs=specs, impl=impl)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h + ffn_out, aux, new_cache
 
 
 class LM(nn.Module):
-    """The whole model's parameters: embedding, decoder layers, final norm
-    and (unless tied) the unembedding, float32 as in the reference."""
+    """The whole model's parameters: embedding, the scan steps' layers
+    (``DecoderLayer``s, SSM ``ParameterDict``s or MoE groups), final norm and
+    (unless tied) the unembedding, float32 as in the reference."""
 
-    def __init__(self, embed: torch.Tensor, layers: list[DecoderLayer],
+    def __init__(self, embed: torch.Tensor, layers: list[nn.Module],
                  final_norm: torch.Tensor, unembed: torch.Tensor | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed)
@@ -90,12 +119,17 @@ class LM(nn.Module):
         return w.to(cfg.activation_dtype)
 
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        # the rows the reference gathers from its cast table: the cast commutes.
-        # F.embedding, not self.embed[tokens]: the backward of an index is
-        # index_put_(accumulate=True), which may add a repeated token's rows in
-        # another order on every CUDA run; embedding's backward sums them in a
-        # fixed order, so two training runs stay bit-equal.
-        return F.embedding(tokens.long(), self.embed).to(cfg.activation_dtype)
+        return embed_tokens(self.embed, tokens, cfg)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The rows the reference gathers from its cast table: the cast commutes.
+
+    F.embedding, not embed[tokens]: the backward of an index is
+    index_put_(accumulate=True), which may add a repeated token's rows in
+    another order on every CUDA run; embedding's backward sums them in a
+    fixed order, so two training runs stay bit-equal."""
+    return F.embedding(tokens.long(), embed).to(cfg.activation_dtype)
 
 
 def _prepend_layers_axis(axes):
@@ -104,10 +138,25 @@ def _prepend_layers_axis(axes):
     return ("w_layers",) + axes
 
 
+def _moe_group_size(cfg: ModelConfig) -> int | None:
+    """k when MoE layers are interleaved every k layers (llama4), else None."""
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        assert cfg.num_layers % cfg.moe_every == 0
+        return cfg.moe_every
+    return None
+
+
 def _layer_axes(cfg: ModelConfig) -> dict:
+    if cfg.family == "ssm":
+        return {"mixer": ssm_mod.ssm_axes(cfg), "norm1": ("embed",)}
+    if _moe_group_size(cfg) is not None:
+        return {
+            "dense": _prepend_layers_axis(_layer_axes(cfg.scaled(family="dense"))),
+            "moe": _layer_axes(cfg.scaled(moe_every=1)),
+        }
     return {
         "attn": L.attention_axes(cfg),
-        "ffn": L.mlp_axes(cfg),
+        "ffn": moe_mod.moe_axes(cfg) if cfg.family == "moe" else L.mlp_axes(cfg),
         "norm1": ("embed",),
         "norm2": ("embed",),
     }
@@ -116,7 +165,7 @@ def _layer_axes(cfg: ModelConfig) -> dict:
 def lm_axes(cfg: ModelConfig) -> dict:
     """The logical-axis tree of the parameters, in the reference's layout
     (``models.model.param_tree``: every ``layers`` leaf stacked on a leading
-    ``w_layers`` axis)."""
+    ``w_layers`` axis, a llama4 group's dense layers on a second one)."""
     check_family(cfg)
     axes = {
         "embed": ("vocab", "w_embed"),
@@ -128,17 +177,45 @@ def lm_axes(cfg: ModelConfig) -> dict:
     return axes
 
 
-def lm_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None) -> LM:
+def _num_scan_steps(cfg: ModelConfig) -> int:
+    k = _moe_group_size(cfg)
+    return cfg.num_layers // k if k is not None else cfg.num_layers
+
+
+def _layer_init(generator: torch.Generator, cfg: ModelConfig, specs, dev,
+                expert_shard=None) -> nn.Module:
+    """One scan step's parameters: a decoder layer, an SSM layer or an MoE group
+    (an MoE layer holding shard ``expert_shard`` of its experts)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return param_dict({"mixer": ssm_mod.ssm_init(generator, cfg, dev),
+                           "norm1": torch.ones(d, device=dev)})
+    k = _moe_group_size(cfg)
+    if k is not None:
+        dense_cfg = cfg.scaled(family="dense")
+        return nn.ModuleDict({
+            "dense": nn.ModuleList([_layer_init(generator, dense_cfg, specs, dev)
+                                    for _ in range(k - 1)]),
+            "moe": _layer_init(generator, cfg.scaled(moe_every=1), specs, dev, expert_shard)})
+    moe = cfg.family == "moe"
+    ffn = (moe_mod.moe_init(generator, cfg, dev, expert_shard) if moe
+           else L.mlp_init(generator, cfg, specs=specs, device=dev))
+    first = moe_mod.expert_range(cfg, expert_shard)[0] if moe else 0
+    return DecoderLayer(L.attention_init(generator, cfg, dev), ffn,
+                        torch.ones(d, device=dev), torch.ones(d, device=dev), first)
+
+
+def lm_init(generator: torch.Generator, cfg: ModelConfig, specs=None, device=None,
+            expert_shard: tuple[int, int] | None = None) -> LM:
     """Random weights from ``generator`` (drawn on its device), on ``device``
-    (default CUDA)."""
+    (default CUDA); each MoE layer holds shard ``expert_shard = (i, n)`` of its
+    experts (``moe.moe_init``), all of them by default."""
     check_family(cfg)
     dev = resolve_device(device)
     d = cfg.d_model
     embed = L.embed_init(generator, cfg.padded_vocab, d, device=dev)
-    layers = [DecoderLayer(L.attention_init(generator, cfg, dev),
-                           L.mlp_init(generator, cfg, specs=specs, device=dev),
-                           torch.ones(d, device=dev), torch.ones(d, device=dev))
-              for _ in range(cfg.num_layers)]
+    layers = [_layer_init(generator, cfg, specs, dev, expert_shard)
+              for _ in range(_num_scan_steps(cfg))]
     unembed = None
     if not cfg.tie_embeddings:
         unembed = L._normal(generator, (d, cfg.padded_vocab), d**-0.5, dev)
@@ -174,6 +251,44 @@ def _remat(fn, cfg: ModelConfig):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
+def remat_block(fn, cfg: ModelConfig):
+    """The hybrid and encoder-decoder blocks' remat, the reference's plain
+    ``jax.checkpoint`` under any ``cfg.remat`` but "none": the whole block
+    recomputed in the backward, when autograd records."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+
+def _group_body(group: nn.ModuleDict, cfg: ModelConfig, h: torch.Tensor,
+                positions: torch.Tensor, *, specs=None, caches: list | None = None,
+                impl: str = "cuda"):
+    """One MoE layer group: k-1 dense layers, then one MoE layer. ``caches``:
+    the k layers' ``attention_apply`` caches, in order, for decode.
+    Returns (h, aux)."""
+    dense_cfg = cfg.scaled(family="dense")
+    layers = [(lyr, dense_cfg) for lyr in group["dense"]] + \
+        [(group["moe"], cfg.scaled(moe_every=1))]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j, (lyr, lcfg) in enumerate(layers):
+        h, aux_j, _ = lyr(lcfg, h, positions, specs=specs, impl=impl,
+                          cache=None if caches is None else caches[j])
+        aux = aux + aux_j
+    return h, aux
+
+
+def _layer_body(layer: nn.Module, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+                *, specs=None, impl: str = "cuda"):
+    """One scan step of the full-sequence forward. Returns (h, aux)."""
+    if cfg.family == "ssm":
+        mix, _ = ssm_mod.ssm_apply(layer["mixer"], cfg, L.rmsnorm(h, layer["norm1"]))
+        return h + mix, torch.zeros((), dtype=torch.float32, device=h.device)
+    if _moe_group_size(cfg) is not None:
+        return _group_body(layer, cfg, h, positions, specs=specs, impl=impl)
+    h, aux, _ = layer(cfg, h, positions, specs=specs, impl=impl)
+    return h, aux
+
+
 def forward(
     params: LM,
     cfg: ModelConfig,
@@ -184,7 +299,8 @@ def forward(
     last_only: bool = False,            # prefill: only final-position logits
     impl: str = "cuda",
 ) -> LMOutputs:
-    """Full-sequence forward -> logits (B, S_text, Vpad) (or (B, 1, Vpad))."""
+    """Full-sequence forward -> logits (B, S_text, Vpad) (or (B, 1, Vpad)) and
+    the MoE layers' aux loss over ``cfg.num_layers``."""
     check_family(cfg)
     dt = cfg.activation_dtype
     h = params.embed_tokens(tokens, cfg)
@@ -195,19 +311,35 @@ def forward(
     positions = torch.arange(h.shape[1], device=h.device)
 
     def body(layer, h):
-        return layer(cfg, h, positions, specs=specs, impl=impl)[0]
+        return _layer_body(layer, cfg, h, positions, specs=specs, impl=impl)
 
     if torch.is_grad_enabled():
         body = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in params.layers:
-        h = body(layer, h)
+        h, aux_i = body(layer, h)
+        aux = aux + aux_i
     h = L.rmsnorm(h, params.final_norm)
     if n_prefix:
         h = h[:, n_prefix:, :]
     if last_only:
         h = h[:, -1:, :]
     logits = L.mask_pad_logits(h @ params.unembedding(cfg), cfg)
-    return LMOutputs(logits=logits, aux_loss=torch.zeros((), device=h.device))
+    return LMOutputs(logits=logits, aux_loss=aux / cfg.num_layers)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
+    """(mean cross-entropy, logz) of ``logits`` taken to float32, ``logz``
+    their logsumexp over the padded vocabulary.
+
+    The reference sums ``logits * one_hot(targets)``; here the target logit
+    is gathered. The one-hot form adds exact zeros to it, so the two are
+    bit-equal, and the gather spares a (B, S, Vpad) float32 tensor (400 MB
+    at cb-paper's training shape)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return -torch.mean(tgt - logz), logz
 
 
 def lm_loss(
@@ -223,19 +355,12 @@ def lm_loss(
     """``xent + aux_weight * aux + z_weight * mean(logz^2)`` over ``batch``'s
     ``tokens`` / ``targets`` (and ``patch_embeds`` for the VLM family), the
     logits in float32 and ``logz`` their logsumexp over the padded vocabulary.
-    Returns ``(loss, {"xent", "aux", "zloss"})``.
-
-    The reference sums ``logits * one_hot(targets)``; here the target logit
-    is gathered. The one-hot form adds exact zeros to it, so the two are
-    bit-equal, and the gather spares a (B, S, Vpad) float32 tensor (400 MB
-    at cb-paper's training shape).
+    Returns ``(loss, {"xent", "aux", "zloss"})``; the cross-entropy is
+    ``cross_entropy``'s.
     """
     out = forward(params, cfg, batch["tokens"], specs=specs,
                   patch_embeds=batch.get("patch_embeds"), impl=impl)
-    logits = out.logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
-    xent = -torch.mean(tgt - logz)
+    xent, logz = cross_entropy(out.logits, batch["targets"])
     zloss = torch.mean(torch.square(logz))
     loss = xent + aux_weight * out.aux_loss + z_weight * zloss
     return loss, {"xent": xent, "aux": out.aux_loss, "zloss": zloss}
@@ -243,12 +368,31 @@ def lm_loss(
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm_mod.ssm_state_init(cfg, batch, cfg.num_layers, device=device)
     return L.decode_cache_init(cfg, batch, max_len, cfg.num_layers, device=device)
 
 
 def decode_state_axes(cfg: ModelConfig) -> dict:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm_mod.SSM_STATE_AXES
     return L.CACHE_AXES
+
+
+def ssm_layers_decode(layers, cfg: ModelConfig, h: torch.Tensor, ssd: torch.Tensor,
+                      conv: torch.Tensor):
+    """``ssm_decode_step`` through consecutive SSM layers, each a residual block
+    ``{"mixer", "norm1"}`` reading its slice of ``ssd`` / ``conv`` (L, B, ...).
+    Returns (h, new ssd, new conv), the states stacked."""
+    new_ssd, new_conv = [], []
+    for i, layer in enumerate(layers):
+        mix, ns = ssm_mod.ssm_decode_step(layer["mixer"], cfg, L.rmsnorm(h, layer["norm1"]),
+                                          {"ssd": ssd[i], "conv": conv[i]})
+        h = h + mix
+        new_ssd.append(ns["ssd"])
+        new_conv.append(ns["conv"])
+    return h, torch.stack(new_ssd), torch.stack(new_conv)
 
 
 @torch.no_grad()
@@ -264,16 +408,27 @@ def decode_step(
 ) -> tuple[torch.Tensor, dict]:
     """One token for every sequence in the batch. Returns (logits, state).
 
-    ``state`` is not written: the step copies its caches once and writes
-    this step's k/v into the copy, which the returned state holds.
+    ``state`` is not written: the step copies its KV caches once and writes
+    this step's k/v into the copy, which the returned state holds; an SSM
+    step returns new state tensors.
     """
     check_family(cfg)
     h = params.embed_tokens(tokens, cfg)        # (B, 1, d)
-    positions = pos[:, None]                    # (B, 1) absolute
-    ck, cv = state["k"].clone(), state["v"].clone()
-    for i, layer in enumerate(params.layers):
-        h, _ = layer(cfg, h, positions, specs=specs, impl=impl,
-                     cache={"k": ck[i], "v": cv[i], "pos": pos})
+    if cfg.family == "ssm":
+        h, ssd, conv = ssm_layers_decode(params.layers, cfg, h, state["ssd"], state["conv"])
+        new_state = {"ssd": ssd, "conv": conv}
+    else:
+        positions = pos[:, None]                # (B, 1) absolute
+        ck, cv = state["k"].clone(), state["v"].clone()
+        caches = [{"k": ck[i], "v": cv[i], "pos": pos} for i in range(cfg.num_layers)]
+        k = _moe_group_size(cfg)
+        for g, layer in enumerate(params.layers):
+            if k is not None:               # caches (L, ...) regrouped as (G, k, ...)
+                h, _ = _group_body(layer, cfg, h, positions, specs=specs, impl=impl,
+                                   caches=caches[g * k:(g + 1) * k])
+            else:
+                h, _, _ = layer(cfg, h, positions, specs=specs, impl=impl, cache=caches[g])
+        new_state = {"k": ck, "v": cv, "pos": state["pos"] + 1}
     h = L.rmsnorm(h, params.final_norm)
     logits = L.mask_pad_logits((h @ params.unembedding(cfg))[:, 0, :], cfg)
-    return logits, {"k": ck, "v": cv, "pos": state["pos"] + 1}
+    return logits, new_state

@@ -10,6 +10,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import errors
+from repro_torch.models import encdec
 from repro_torch.models.model import Model
 
 
@@ -33,14 +35,25 @@ def greedy_decode(
     max_len: int | None = None,
     temperature: float = 0.0,
     generator: torch.Generator | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Returns generated tokens (B, max_new_tokens) int32. With a
     ``temperature`` above 0 and a ``generator`` it samples (the reference's
-    PRNG key becomes the generator); otherwise it takes the argmax."""
+    PRNG key becomes the generator); otherwise it takes the argmax.
+
+    ``frames`` (encoder-decoder only, (B, num_frames, d)): the encoder's
+    input; the decoder attends to its ``encdec.precompute_cross`` k/v. The
+    reference has no such option: without it the cross k/v are the decode
+    state's zeros, as in the reference."""
     prompts = torch.as_tensor(prompts, device=model.device)
     B, P = prompts.shape
     max_len = max_len or (P + max_new_tokens)
     state = model.init_decode_state(B, max_len)
+    if frames is not None:
+        if model.cfg.family != "encdec":
+            raise errors.InvalidArgError(f"frames= needs the encdec family, not "
+                                         f"{model.cfg.family!r}")
+        state["cross"] = encdec.precompute_cross(params, model.cfg, frames)
     step_fn = build_decode_fn(model)
 
     logits = None

@@ -124,14 +124,20 @@ class ServingEngine:
                 self._reset_slot_cache(s)
 
     def _reset_slot_cache(self, s: int) -> None:
-        # state leaves are (L, B, ...) or (B, ...); zero batch index s. In
-        # place: the engine owns these tensors (each came back from a step,
-        # which never writes its input), so no step sees the change midway.
-        for leaf in self.state.values():
-            if leaf.ndim >= 2 and leaf.shape[1] == self.slots:
-                leaf[:, s] = 0
-            elif leaf.ndim >= 1 and leaf.shape[0] == self.slots:
-                leaf[s] = 0
+        # state leaves, at any depth of the state's dicts (hybrid: ssm / attn,
+        # encdec: self / cross), are (L, B, ...) or (B, ...); zero batch index
+        # s. In place: the engine owns these tensors (each came back from a
+        # step, which never writes its input), so no step sees the change midway.
+        def zero_slot(node):
+            if isinstance(node, dict):
+                for child in node.values():
+                    zero_slot(child)
+            elif node.ndim >= 2 and node.shape[1] == self.slots:
+                node[:, s] = 0
+            elif node.ndim >= 1 and node.shape[0] == self.slots:
+                node[s] = 0
+
+        zero_slot(self.state)
 
     # ------------------------------------------------------------------
     def _expire(self, req: Request) -> None:

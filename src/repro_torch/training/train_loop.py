@@ -100,12 +100,15 @@ def _leaf_groups(params) -> list[list[int]]:
     parameter tree (a layer-stacked leaf: one index per layer)."""
     groups = []
 
+    def flat(node) -> list:
+        return [i for c in node for i in flat(c)] if isinstance(node, list) else [node]
+
     def walk(node):
         if isinstance(node, dict):
             for child in node.values():
                 walk(child)
         else:
-            groups.append(node if isinstance(node, list) else [node])
+            groups.append(flat(node))
 
     walk(param_tree(params, range(len(list(params.parameters())))))
     return groups

@@ -1,7 +1,8 @@
 """TrainState: params + optimizer state + step, and its reference layout.
 
 The port of ``repro.training.train_state``. ``params`` is the model's
-``transformer.LM``; the optimizer's moments and the EF buffers are lists in
+module of parameters (``transformer.LM``, ``hybrid.HybridLM`` or
+``encdec.EncDecLM``); the optimizer's moments and the EF buffers are lists in
 ``params.parameters()`` order (``training.optimizer``).
 
 ``train_state_to_numpy`` / ``train_state_from_numpy`` map a state to and
@@ -32,7 +33,7 @@ from .optimizer import AdamWState, LionState
 @dataclasses.dataclass
 class TrainState:
     step: Any                # () int32 tensor (numpy in the reference layout)
-    params: Any              # transformer.LM (the nested dict in the reference layout)
+    params: Any              # the model's nn.Module (the nested dict in the reference layout)
     opt_state: Any
     ef_buffers: Any = None   # int8-compression error feedback
 
@@ -141,7 +142,7 @@ def stacked_tree(params, values=None) -> dict:
     def stacked(node):
         if isinstance(node, dict):
             return {k: stacked(c) for k, c in node.items()}
-        return Stacked(node) if isinstance(node, list) else node
+        return Stacked(stacked(c) for c in node) if isinstance(node, list) else node
 
     return stacked(param_tree(params, values))
 

@@ -399,3 +399,50 @@ def test_distributed_spmv_on_one_nccl_rank(tmp_path, combine):
                                    rtol=3e-4, atol=3e-4)
     finally:
         dist.destroy_process_group()
+
+
+# -- the MoE, SSM, hybrid and encoder-decoder families (tests/test_torch_moe.py, -----
+# -- test_torch_ssm.py, test_torch_hybrid_encdec.py) -------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, expert_shard", [
+    ("mixtral-8x7b", None), ("llama4-maverick-400b-a17b", None),
+    ("llama4-maverick-400b-a17b", (1, 2)), ("mamba2-130m", None), ("zamba2-2.7b", None),
+    ("whisper-small", None)])
+def test_family_decode_on_the_card_matches_the_cpu(arch, expert_shard):
+    """Teacher-forced ``decode_step`` of the smoke config (bfloat16) on the card
+    against the same weights on the CPU, within 2^-5 of the logits' scale
+    (the bfloat16 bound of the parity tests), and two card runs bit-equal.
+    Whisper decodes over ``precompute_cross`` of seeded frames; llama4 also
+    with its MoE layers holding half of the experts."""
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model, encdec
+
+    cfg = get_smoke_config(arch)
+    cpu = Model(cfg, "cpu", expert_shard=expert_shard)
+    card = Model(cfg, "cuda", expert_shard=expert_shard)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_card = card.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 6)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((3, max(cfg.num_frames, 1), cfg.d_model))
+                              .astype(np.float32)).to(cfg.activation_dtype)
+
+    def run(model, params, dev):
+        st = model.init_decode_state(3, 8)
+        if cfg.family == "encdec":
+            st["cross"] = encdec.precompute_cross(params, cfg, frames.to(dev))
+        out = []
+        for t in range(toks.shape[1]):
+            pos = torch.full((3,), t, dtype=torch.int32, device=dev)
+            lg, st = model.decode_step(params, st, toks[:, t:t + 1].to(dev), pos)
+            out.append(lg)
+        return torch.stack(out, 1)
+
+    want = run(cpu, p_cpu, "cpu")
+    got = run(card, p_card, "cuda")
+    assert got.is_cuda and got.dtype == cfg.activation_dtype and torch.isfinite(got).all()
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float().cpu() - want.float()).abs().max().item() <= 2.0**-5 * scale
+    assert torch.equal(got, run(card, p_card, "cuda"))

@@ -380,7 +380,8 @@ def test_port_has_every_module_of_the_slice():
                 "checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/__init__.py",
                 "runtime/elastic.py", "runtime/fault_tolerance.py", "runtime/faults.py",
                 "launch/train.py", "core/distributed.py", "launch/mesh.py",
-                "models/sharding.py", "runtime/pipeline.py"):
+                "models/sharding.py", "runtime/pipeline.py", "models/moe.py",
+                "models/ssm.py", "models/hybrid.py", "models/encdec.py"):
         assert mod in have, mod
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu",
