@@ -160,7 +160,29 @@ the ``nvidia-smi`` line):
    X bfloat16, dX with dY float32; gate and down). ``train_resume``:
    ``cb-paper-smoke`` 10 steps with a checkpoint at 5 and 10, restored at 5
    and run to 10, parameters bit-equal to the straight run's.
-12. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+12. ``dryrun`` — the one-rank dry run (``repro_torch.launch.dryrun``: the
+   step on the meta device, FLOPs from ``FlopCounterMode``, the byte floor
+   (each step input read once, each output written once) and the unfused op
+   bytes, the peak from ``MemTracker``; no kernel is built or launched, and the
+   wrappers' counters are held at 0 across it) against what the card measured.
+   ``dryrun train``: cb-paper's training step at the ``train`` line's shape
+   (8 x 256, ``remat="full"``): ``flops_counted`` beside ``train_bound``'s
+   bf16 and sparse products (outside 0.98-1.02 fails), ``peak_est_gb`` beside
+   the measured ``peak_mem_gb`` with their ratio, ``compute_ms`` / ``memory_ms``
+   / ``memory_unfused_ms`` (the counts over the H100 data-sheet rates) beside
+   ``step_ms``. ``dryrun serve``: one decode step at the ``serve`` line's shape
+   (4 slots, ``max_len`` 256, float32 weights as the engine serves them): the
+   byte floor beside the line's ``tick_bytes`` plus the new KV cache the step
+   writes (outside 1 to 1 + ``DRYRUN_FLOOR_SLACK`` / layers fails: one layer
+   uncounted falls below), and all three counts beside the 2- and 4-layer
+   probes extrapolated (apart by more than ``DRYRUN_PROBE_TOL`` fails: some
+   layers counted differently from others). ``dryrun_sweep``:
+   every (arch x shape) cell of the ten archs and cb-paper through ``run_cell``,
+   in ``DRYRUN_WORKERS`` processes: ok / skipped / FAILED counts (any FAILED
+   fails, and so does a split other than ``supports_shape``'s) and seconds.
+13. ``families`` — the MoE, SSM, hybrid and encoder-decoder families served
+   through ``ServingEngine`` (a ``family`` line each; ``PERF.md`` section 4).
+14. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
    runs, one MLP training step, the first served run, the 6 trained steps,
    every rank's first ``distributed_spmv`` call, summed; ``launches_per_call``
@@ -174,7 +196,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-13. the ``nvidia-smi`` name and power limit, then the verdict line.
+15. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -232,8 +254,11 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch import obs, solvers  # noqa: E402
 from repro_torch.autotune import PlanCache, SearchSettings  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ARCH_IDS, SHAPES, ShapeConfig, get_config, get_smoke_config, supports_shape,
+)
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import Model, encdec  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
@@ -1684,6 +1709,8 @@ def run_serve(seed, per_kernel, launches):
          dense_mlp="torch.matmul of one layer's dense_equivalent weights, x (4, 4096)",
          nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
     del params, model, state
+    return dict(tick_bytes=tick_bytes, kv_cache_bytes=kv_bytes, tick_ms=tick_med,
+                device_tick_ms=device_tick_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1974,6 +2001,7 @@ def run_train(seed, per_kernel, launches):
          runs_bit_equal=runs_bit_equal, impl_vs_reference=impl, bfloat16_vs_float32=bf16_f32,
          kernel_parts_ms=parts, nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
     del model
+    line = dict(step_ms=step_med, peak_mem_gb=peak_mem_gb, **b)
 
     # -- resume on the card at smoke size: a checkpoint at 5, restored, run to 10 -------
     t0 = time.perf_counter()
@@ -1998,6 +2026,123 @@ def run_train(seed, per_kernel, launches):
          resumed_from=5, losses=[h["loss"] for h in hist_s],
          resumed_losses=[h["loss"] for h in hist_r], params_bit_equal=bit_equal,
          seconds=time.perf_counter() - t0)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# the dryrun phase: the one-rank dry run's counts against what the card measured
+# ---------------------------------------------------------------------------
+
+DRYRUN_FLOPS_BAND = (0.98, 1.02)   # counted training FLOPs / train_bound's products: both
+                                   # count matrix products alone (FlopCounterMode counts no
+                                   # elementwise op), so a product one of them misses, or
+                                   # a recompute it doubles, shows as a step outside 2%
+DRYRUN_FLOOR_SLACK = 0.5           # the tick's byte floor may exceed the serve line's bytes
+                                   # by the logits and positions, far less than half a layer
+                                   # (/ num_layers); one layer's weights uncounted falls below
+DRYRUN_PROBE_TOL = 1e-9            # full-depth counts / the probes' extrapolation - 1: every
+                                   # layer counts alike, so they agree to rounding
+DRYRUN_WORKERS = 8                 # sweep processes (host only: the cells run on meta)
+
+
+def dryrun_cell(job: tuple[str, str]) -> dict:
+    """One sweep cell in a worker process: its status and host seconds."""
+    arch, shape = job
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(arch, shape)
+    return dict(arch=arch, shape=shape, status=cell["status"], error=cell.get("error"),
+                seconds=time.perf_counter() - t0)
+
+
+def run_dryrun(train_line: dict, serve_line: dict) -> None:
+    """The dry run of cb-paper's training step and serving tick held against the
+    ``train`` and ``serve`` lines, then the whole sweep of cells."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    counters = {k: w.launches for k, w in WRAPPERS.items()}
+    rates = dict(peak_flops=dryrun.PEAK_FLOPS, hbm_bytes_per_s=dryrun.HBM_BW,
+                 nvlink_bytes_per_s=dryrun.NVLINK_BW,
+                 source="NVIDIA H100 80GB HBM3 (SXM, 700 W) data sheet")
+
+    # -- the training step at the train line's shape ------------------------------------
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train_line", "train", TRAIN["seq_len"], TRAIN["global_batch"])
+    counts = dryrun.count_cell(cfg, shape)
+    roof = dryrun.analyze(counts, cfg, shape)["roofline"]
+    products = train_line["bf16_flops"] + train_line["sparse_flops"]
+    flops_ratio = counts["flops"] / products
+    peak_est_gb = counts["memory"]["total"] / 1e9
+    emit("dryrun train", config=cfg.name, shape=dataclasses.asdict(shape),
+         flops_counted=counts["flops"], train_bound_flops=products,
+         flops_ratio=flops_ratio, flops_band=DRYRUN_FLOPS_BAND,
+         bytes_floor=counts["bytes_floor"], bytes_unfused=counts["bytes_unfused"],
+         peak_est_gb=peak_est_gb, peak_mem_gb=train_line["peak_mem_gb"],
+         peak_ratio=peak_est_gb / train_line["peak_mem_gb"],
+         peak_est_by_kind_gb={k: v / 1e9 for k, v in counts["memory"].items()},
+         compute_ms=roof["compute_s"] * 1e3, memory_ms=roof["memory_s"] * 1e3,
+         memory_unfused_ms=roof["memory_unfused_s"] * 1e3,
+         step_ms=train_line["step_ms"], bound_ms=train_line["bound_ms"], rates=rates,
+         seconds=time.perf_counter() - t0)
+    lo, hi = DRYRUN_FLOPS_BAND
+    if not lo <= flops_ratio <= hi:
+        fail(f"dryrun train: counted {counts['flops']:.4e} FLOPs against train_bound's "
+             f"{products:.4e} (ratio {flops_ratio:.4f})")
+
+    # -- one serving tick at the serve line's shape, float32 weights --------------------
+    t0 = time.perf_counter()
+    shape = ShapeConfig("serve_line", "decode", SERVE["max_len"], SERVE["slots"])
+    counts = dryrun.count_cell(cfg, shape, serve_dtype=None)
+    probed = dryrun.probe_costs(cfg, shape, serve_dtype=None)
+    roof = dryrun.analyze(counts, cfg, shape)["roofline"]
+    # the floor of a tick: the serve line's tick_bytes (weights, the gathered embedding
+    # rows, the KV cache read) plus the new cache the step writes (decode_step copies it)
+    floor_expected = serve_line["tick_bytes"] + serve_line["kv_cache_bytes"]
+    floor_ratio = counts["bytes_floor"] / floor_expected
+    probe_err = {k: abs(probed[k] / counts[k] - 1) for k in dryrun.COUNTS}
+    emit("dryrun serve", config=cfg.name, shape=dataclasses.asdict(shape),
+         bytes_floor=counts["bytes_floor"], tick_bytes=serve_line["tick_bytes"],
+         kv_cache_bytes=serve_line["kv_cache_bytes"], floor_expected=floor_expected,
+         floor_ratio=floor_ratio, floor_band=(1.0, 1 + DRYRUN_FLOOR_SLACK / cfg.num_layers),
+         bytes_unfused=counts["bytes_unfused"],
+         unfused_ratio=counts["bytes_unfused"] / serve_line["tick_bytes"],
+         probe_rel_err=probe_err, probe_tol=DRYRUN_PROBE_TOL,
+         flops_counted=counts["flops"], peak_est_gb=counts["memory"]["total"] / 1e9,
+         compute_ms=roof["compute_s"] * 1e3, memory_ms=roof["memory_s"] * 1e3,
+         memory_unfused_ms=roof["memory_unfused_s"] * 1e3,
+         device_tick_ms=serve_line["device_tick_ms"], tick_ms=serve_line["tick_ms"],
+         seconds=time.perf_counter() - t0)
+    if not 1.0 <= floor_ratio <= 1 + DRYRUN_FLOOR_SLACK / cfg.num_layers:
+        fail(f"dryrun serve: byte floor {counts['bytes_floor']} against the tick's "
+             f"{floor_expected} (ratio {floor_ratio:.6f}): a layer's reads went uncounted "
+             "or something beyond the tick was counted")
+    if max(probe_err.values()) > DRYRUN_PROBE_TOL:
+        fail(f"dryrun serve: the full-depth counts are not the 2- and 4-layer probes "
+             f"extrapolated: {probe_err}")
+    moved = {k: w.launches - counters[k] for k, w in WRAPPERS.items() if w.launches != counters[k]}
+    if moved:
+        fail(f"dryrun: the meta steps launched kernels: {moved}")
+
+    # -- the sweep: every cell of the ten archs and cb-paper at one rank ----------------
+    t0 = time.perf_counter()
+    order = {"train": 0, "prefill": 1, "decode": 2}       # the costliest cells first
+    jobs = sorted(((a, s) for a in (*ARCH_IDS, "cb-paper") for s in SHAPES),
+                  key=lambda j: order[SHAPES[j[1]].kind])
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(DRYRUN_WORKERS, len(jobs))) as pool:
+        cells = list(pool.imap_unordered(dryrun_cell, jobs))
+    count = collections.Counter(c["status"] for c in cells)
+    expected_ok = sum(supports_shape(get_config(a), SHAPES[s])[0] for a, s in jobs)
+    failed = [c for c in cells if c["status"] == "FAILED"]
+    emit("dryrun_sweep", cells=len(cells), ok=count["ok"], skipped=count["skipped"],
+         failed=count["FAILED"], expected_ok=expected_ok, workers=DRYRUN_WORKERS,
+         seconds=time.perf_counter() - t0,
+         slowest=sorted(((c["seconds"], c["arch"], c["shape"]) for c in cells),
+                        reverse=True)[:5],
+         failures=[(c["arch"], c["shape"], c["error"]) for c in failed],
+         phase_s=time.perf_counter() - t_phase)
+    if failed or count["ok"] != expected_ok:
+        fail(f"dryrun_sweep: {count['ok']} ok (expected {expected_ok}), "
+             f"{count['FAILED']} FAILED: {[(c['arch'], c['shape']) for c in failed]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2819,10 +2964,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_mlp_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
-    run_serve(args.seed, per_kernel, launches)
+    serve_line = run_serve(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()                    # the served model's 14 GB, before training's 56
-    run_train(args.seed, per_kernel, launches)
+    train_line = run_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
+    run_dryrun(train_line, serve_line)
     run_families(args.seed)
 
     kernels = []

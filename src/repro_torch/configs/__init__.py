@@ -11,7 +11,7 @@ import importlib
 
 from .base import (  # noqa: F401
     LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K, DECODE_32K,
-    ModelConfig, ShapeConfig, supports_shape,
+    ModelConfig, ShapeConfig, input_specs, supports_shape,
 )
 
 _MODULES = {

@@ -2,10 +2,11 @@
 
 One ``ModelConfig`` per assigned architecture (exact public configs in the
 sibling modules) and one ``ShapeConfig`` per assigned input shape, the JAX
-package's (``src/repro/configs/base.py``) field for field. The one
-difference: ``activation_dtype`` is a ``torch.dtype``. The dry run's
-``input_specs`` (shape-only stand-ins for every model input) is not ported
-yet; it comes with the dry-run launcher.
+package's (``src/repro/configs/base.py``) field for field. A (config,
+shape) pair fully determines the dry-run cell: ``input_specs`` builds its
+inputs as tensors on the meta device (shape and dtype only), and the
+launcher picks the train step, prefill or decode from ``shape.kind``. The
+one difference: ``activation_dtype`` is a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -168,3 +169,24 @@ def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
             return False, "pure full attention is quadratic at 500k — skipped"
     return True, ""
 
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input: meta tensors (no allocation) of the
+    reference's shapes and dtypes."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": spec((B, S), i32), "targets": spec((B, S), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": spec((B, S), i32)}
+    else:  # decode: one new token against a seq_len-deep cache
+        specs = {"tokens": spec((B, 1), i32), "pos": spec((B,), i32)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        specs["patch_embeds"] = spec((B, cfg.num_patches, cfg.d_model), cfg.activation_dtype)
+    if cfg.family == "encdec":
+        specs["frames"] = spec((B, cfg.num_frames, cfg.d_model), cfg.activation_dtype)
+    return specs

@@ -107,7 +107,7 @@ def chunk_length(positions: int, num_slots: int) -> int:
 
 def plan_combine(brow: torch.Tensor, device) -> CombinePlan:
     """Fix the order in which slots with block rows ``brow`` are summed."""
-    rows = brow.reshape(-1).cpu().numpy().astype(np.int64)
+    rows = brow.reshape(-1).cpu().numpy().astype(np.int64)  # cblint: disable=CB211 -- plan time
     n = len(rows)
     if n >= 2**31 - 1024:
         raise errors.InvalidArgError("combine indexes slots with int32")

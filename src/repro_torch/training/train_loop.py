@@ -14,7 +14,7 @@ returns that same state.
 ``run_training`` is the host loop: deterministic data stream (resume ==
 replay), periodic async checkpoints, heartbeat + straggler bookkeeping
 from runtime/, and crash-consistent restart. It reads device values only
-on logging steps (``float(v)``, the sync the reference makes too).
+on logging steps (``v.item()``, the sync the reference makes too).
 """
 from __future__ import annotations
 
@@ -168,7 +168,7 @@ def run_training(
         state = initial_state
 
     history: list[dict] = []
-    start = int(state.step)
+    start = state.step.item()  # cblint: disable=CB211 -- once, before the loop
     for step in range(start, loop_cfg.total_steps):
         t0 = time.monotonic()
         batch = data_stream.batch(step)
@@ -178,7 +178,7 @@ def run_training(
             monitor.heartbeat(step)
 
         if step % loop_cfg.log_every == 0 or step == loop_cfg.total_steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: v.item() for k, v in metrics.items()}  # cblint: disable=CB211 -- log steps
             m["step"] = step
             m["step_time_s"] = time.monotonic() - t0
             history.append(m)
