@@ -69,7 +69,7 @@ the ``nvidia-smi`` line):
    on the ``spmv`` lines' matrices, float32, the same seeds:
    ``CBMatrix.plan_for`` in ``mode="heuristic"`` (shape arithmetic only) and
    ``mode="timed"`` (its shortlist timed through ``cb_spmv(impl="cuda")`` with
-   CUDA events) on ``power_law``, ``mode="timed"`` on ``banded``. Each line: the
+   CUDA events) on ``power_law``. Each line: the
    chosen block size, thresholds, colagg and group size, the cost model's
    predicted and the built streams' measured padded elements and steps,
    ``t_spmv`` and ``plan_s`` (the search's host seconds); then the planned path
@@ -160,6 +160,29 @@ the ``nvidia-smi`` line):
    X bfloat16, dX with dY float32; gate and down). ``train_resume``:
    ``cb-paper-smoke`` 10 steps with a checkpoint at 5 and 10, restored at 5
    and run to 10, parameters bit-equal to the straight run's.
+11b. ``mesh`` — the ``train`` line's training on a ``(data, model)``
+   ``DeviceMesh`` (``Model(cfg, mesh=)``: DTensor parameters, FSDP over
+   ``data``, Megatron and expert parallelism over ``model``, the batch split
+   over ``data``), through ``run_training`` under the mesh's ``axis_rules`` as
+   ``launch/train`` runs it, the launch counters zeroed just before and read
+   just after each run. ``mesh_train`` 1x1: one NCCL rank in this process,
+   cb-paper at full depth, 2 steps from the ``train`` phase's weights; the
+   losses and every parameter must be bit-equal to that phase's 2-step run (a
+   one-rank collective runs nothing), ``step_ms`` beside the ``train`` line's,
+   324 spmm and combine launches a step. ``mesh_train`` 2x2: four gloo ranks
+   spawned on ``cuda:0`` (NCCL refuses two ranks on one card: four shards on
+   one card, not four cards), cb-paper at full width with 2 of its 36 layers,
+   2 steps; loss and ``grad_norm`` within ``MESH_TOL`` of one rank from the
+   same weights, each rank's spmm and combine launches held to the count, the
+   replicated CB tiles bit-equal on every rank after each step (sha256), each
+   rank's peak, and rank 0's spmm and combine against their plain versions at
+   its forward shapes (N = 1024 local tokens, X bfloat16), timed beside them
+   and their library calls (rows of the ``kernels`` line). ``mesh_moe`` 1x2: mixtral-8x7b
+   at full width, 2 of 32 layers, float32 activations, two gloo ranks holding
+   4 of 8 experts each, one AdamW step after the one-rank run (freed first: its
+   state is 54 GB): loss and ``grad_norm`` within ``MESH_TOL``, the routing
+   counts of every layer equal. A rank that fails or outlives ``MESH_TIMEOUT``
+   fails the run.
 12. ``dryrun`` — the one-rank dry run (``repro_torch.launch.dryrun``: the
    step on the meta device, FLOPs from ``FlopCounterMode``, the byte floor
    (each step input read once, each output written once) and the unfused op
@@ -185,7 +208,8 @@ the ``nvidia-smi`` line):
 14. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
    runs, one MLP training step, the first served run, the 6 trained steps,
-   every rank's first ``distributed_spmv`` call, summed; ``launches_per_call``
+   every rank's first ``distributed_spmv`` call, the mesh runs' every rank, summed;
+   ``launches_per_call``
    has them apart, keyed by the counted run, the solver runs per iteration, the
    served run per tick, the training run per step, a dist run over its ranks),
    worst error seen,
@@ -220,6 +244,7 @@ import collections
 import copy
 import dataclasses
 import faulthandler
+import hashlib
 import inspect
 import json
 import math
@@ -260,7 +285,7 @@ from repro_torch.configs import (  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.models import Model, encdec  # noqa: E402
+from repro_torch.models import Model, axis_rules, encdec, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serving import Request, ServingEngine, greedy_decode  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
@@ -1225,7 +1250,9 @@ def run_matmat(call, cb, coo, seed, per_kernel, launches):
 
 # (matrix of the spmv lines, search mode): the heuristic ranks on shape
 # arithmetic alone, the timed search times its shortlist through the kernels
-PLAN_RUNS = (("power_law", "heuristic"), ("power_law", "timed"), ("banded", "timed"))
+# banded's timed search (31-77 s of the phase) was cut when the mesh phase came: the
+# timed path stays driven by power_law's search and CG's planned operator (solve phase)
+PLAN_RUNS = (("power_law", "heuristic"), ("power_law", "timed"))
 
 
 def plan_fields(plan) -> dict:
@@ -1916,6 +1943,7 @@ def run_train(seed, per_kernel, launches):
         torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     if not runs_bit_equal:
         fail(f"train: two runs from the same init differ (losses {runs[0][0]} / {runs[1][0]})")
+    two_step = runs[0]                      # the mesh phase's one-rank mesh is held to it
     del runs
 
     # -- full width, 2 layers: impl="cuda" vs "reference", and float32 vs bfloat16 ------
@@ -2001,7 +2029,7 @@ def run_train(seed, per_kernel, launches):
          runs_bit_equal=runs_bit_equal, impl_vs_reference=impl, bfloat16_vs_float32=bf16_f32,
          kernel_parts_ms=parts, nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
     del model
-    line = dict(step_ms=step_med, peak_mem_gb=peak_mem_gb, **b)
+    line = dict(step_ms=step_med, peak_mem_gb=peak_mem_gb, two_step=two_step, **b)
 
     # -- resume on the card at smoke size: a checkpoint at 5, restored, run to 10 -------
     t0 = time.perf_counter()
@@ -2027,6 +2055,264 @@ def run_train(seed, per_kernel, launches):
          resumed_losses=[h["loss"] for h in hist_r], params_bit_equal=bit_equal,
          seconds=time.perf_counter() - t0)
     return line
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: training on a (data, model) DeviceMesh (Model(cfg, mesh=))
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2                 # the train line's traffic, 2 steps
+MESH_TOL = 2.0**-5             # loss and grad_norm, relative, against one rank from the same
+                               # weights: bfloat16 activations summed in another order (the
+                               # row-parallel partial sums are added over model, in bf16)
+MESH_TIMEOUT = 420             # seconds one group of ranks may take, start-up included
+# (tag, arch, mesh shape, layers, steps, dtype): the 2x2 and 1x2 runs are gloo ranks
+# sharing cuda:0 (NCCL refuses two ranks on one card), not four or two cards
+MESH_RUNS = (("mesh_train 2x2", TRAIN["arch"], (2, 2), 2, MESH_STEPS, None),
+             ("mesh_moe 1x2", "mixtral-8x7b", (1, 2), 2, 1, "float32"))
+
+
+def mesh_config(arch: str, layers: int, dtype):
+    cfg = get_config(arch).scaled(num_layers=layers)
+    return cfg if dtype is None else cfg.scaled(dtype=dtype)
+
+
+class TileWatch:
+    """A run_training monitor that hashes the rank's CB tiles after every step."""
+
+    def __init__(self, params):
+        self.tiles = [(n, p) for n, p in params.named_parameters()
+                      if n.split(".")[-1] in ("gate", "up", "down")]
+        self.hashes = []
+
+    def heartbeat(self, step):
+        self.hashes.append([hashlib.sha256(p.to_local().detach().cpu().numpy().tobytes())
+                            .hexdigest() for _, p in self.tiles])
+
+    def report_straggler(self, step, seconds):
+        pass
+
+
+def mesh_train(model, stream, steps: int, seed: int, monitor=None):
+    """``steps`` of run_training from the seeded weights, on the model's mesh
+    (under its rules, as launch/train runs it) or on one rank, counted: the
+    launch counters zeroed just before and read just after. Returns (history,
+    launches, peak GB, state, routing counts)."""
+    state = fresh_state(model, seed)
+    if monitor is not None:
+        monitor = monitor(state.params)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with axis_rules(model.mesh), moe.record_routing() as routing:
+        state, hist = run_training(model, stream, train_loop_config(steps), initial_state=state,
+                                   monitor=monitor)
+    torch.cuda.synchronize()
+    counted = {k: w.launches for k, w in WRAPPERS.items()}
+    return hist, counted, torch.cuda.max_memory_allocated() / 1e9, state, \
+        [c.cpu() for c in routing], monitor
+
+
+def train_stream(cfg):
+    return SyntheticTokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                           global_batch=TRAIN["global_batch"]))
+
+
+def mesh_rank(rank: int, job: dict) -> None:
+    """One rank of a mesh run (a spawned process): joins the gloo group on
+    cuda:0, trains its part of the model, and saves what it measured."""
+    faulthandler.enable()                   # a crash in native code prints its Python stack
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
+                            world_size=job["world"])
+    try:
+        mesh = make_mesh(tuple(job["shape"]), ("data", "model"))
+        cfg = mesh_config(job["arch"], job["layers"], job["dtype"])
+        model = Model(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        hist, counted, peak, state, routing, watch = mesh_train(
+            model, train_stream(cfg), job["steps"], job["seed"],
+            TileWatch if cfg.sparse_mlp else None)
+        run_s = time.perf_counter() - t0
+        rows = {k: [] for k in WRAPPERS}
+        if rank == 0 and cfg.sparse_mlp:        # the kernels at this rank's forward shapes
+            N = TRAIN["global_batch"] * TRAIN["seq_len"] // job["shape"][0]
+            per_step = {k: c / job["steps"] for k, c in counted.items()}
+            gen = torch.Generator(device=DEV).manual_seed(job["seed"] + 9)
+            for name in ("gate", "down"):
+                spec = model.specs[name]
+                route = sparse_linear._Matmul(spec, "cuda", None, DEV).fwd.route
+                X = torch.randn((spec.in_features, N), generator=gen, device=DEV) \
+                    .to(cfg.activation_dtype)
+                spmm_rows(f"{job['tag']} rank 0 {name} forward", f"{job['tag']} step",
+                          state.params.layers[0].ffn[name].to_local().detach(), route.bcol,
+                          ops.x_blocks(X, spec.nb, spec.block_size), route, spec.out_features,
+                          per_step, rows)
+        out = dict(losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+                   step_ms=[h["step_time_s"] * 1e3 for h in hist], launches=counted,
+                   peak_mem_gb=peak, run_s=run_s, routing=routing,
+                   tile_hashes=None if watch is None else watch.hashes, kernel_rows=rows,
+                   worst_err=dict(worst_err), worst_rel=dict(worst_rel))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, pathlib.Path(job["out"]) / f"mesh-{job['world']}-rank{rank}.pt")
+
+
+def spawn_ranks(job: dict, tmp: pathlib.Path) -> list[dict]:
+    """``job["world"]`` mesh ranks spawned at once; every one must end within
+    ``MESH_TIMEOUT`` with exit code 0, or the phase fails."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, job)) for r in range(job["world"])]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if alive:
+        fail(f"{job['tag']}: ranks {alive} still running after {MESH_TIMEOUT} s")
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        fail(f"{job['tag']}: ranks exited with codes {bad}")
+    return [torch.load(tmp / f"mesh-{job['world']}-rank{r}.pt", weights_only=False)
+            for r in range(job["world"])]
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def run_mesh(seed, train_line, per_kernel, launches, mesh_launches) -> None:
+    """The train line's training on a (data, model) mesh: one NCCL rank at full
+    depth held bit for bit to the train phase's 2-step run; 2x2 gloo ranks of
+    cb-paper at 2 layers and 1x2 of mixtral at 2 layers, sharing the card, held
+    to a one-rank run from the same weights."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    stream = train_stream(cfg)
+    want_losses, want_params = train_line.pop("two_step")
+
+    # -- 1x1: one NCCL rank, full depth; every collective is the identity ---------------
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            model = Model(cfg, mesh=mesh)
+            hist, counted, peak, state, _, _ = mesh_train(model, stream, MESH_STEPS, seed)
+            expected = train_launches_per_step(model)
+            for k in ("spmm", "combine"):
+                if counted[k] != MESH_STEPS * expected[k]:
+                    fail(f"mesh_train 1x1: {k} launched {counted[k]} times in {MESH_STEPS} "
+                         f"steps, the code says {MESH_STEPS * expected[k]}")
+            losses = [h["loss"] for h in hist]
+            params_equal = [bool(torch.equal(p.to_local().detach().cpu(), w))
+                            for p, w in zip(state.params.parameters(), want_params,
+                                            strict=True)]
+            dtensor = all(isinstance(p, DTensor) for p in state.params.parameters())
+            del state
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    if losses != want_losses or not all(params_equal) or not dtensor:
+        fail(f"mesh_train 1x1: losses {losses} against the train phase's {want_losses}, "
+             f"{params_equal.count(False)} parameters differ, DTensor parameters {dtensor}")
+    for k, c in counted.items():
+        launches[k] += c
+        if c:
+            mesh_launches.setdefault(k, {})["mesh_train 1x1"] = c
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    emit("mesh_train", mesh="1x1", backend="nccl", ranks=1, config=cfg.name,
+         layers=cfg.num_layers, reduced=None, traffic=dict(TRAIN, steps=MESH_STEPS),
+         losses=losses, train_losses=want_losses, losses_bit_equal=True,
+         params_bit_equal=True, params=len(params_equal), dtensor_params=dtensor,
+         step_ms=step_ms[-1], step_runs_ms=step_ms, train_step_ms=train_line["step_ms"],
+         peak_mem_gb=peak, train_peak_mem_gb=train_line["peak_mem_gb"],
+         launches=counted, expected_launches_per_step=expected)
+    del want_params
+
+    # -- 2x2 and 1x2: gloo ranks sharing the card, against one rank --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for tag, arch, shape, layers, steps, dtype in MESH_RUNS:
+            mcfg = mesh_config(arch, layers, dtype)
+            one = Model(mcfg)
+            t0 = time.perf_counter()
+            hist, counted1, peak1, state, routing1, _ = mesh_train(one, train_stream(mcfg),
+                                                                    steps, seed + 11)
+            one_s = time.perf_counter() - t0
+            expected = train_launches_per_step(one) if mcfg.sparse_mlp else \
+                {"spmm": 0, "combine": 0}
+            del state
+            torch.cuda.empty_cache()                # the one-rank state, before the ranks'
+            world = shape[0] * shape[1]
+            job = dict(tag=tag, arch=arch, shape=list(shape), layers=layers, steps=steps,
+                       dtype=dtype, seed=seed + 11, world=world, store=str(tmp / f"store{world}"),
+                       out=str(tmp))
+            t0 = time.perf_counter()
+            res = spawn_ranks(job, tmp)
+            group_s = time.perf_counter() - t0
+            for r in res:
+                for k in WRAPPERS:
+                    worst_err[k] = max(worst_err[k], r["worst_err"][k])
+                    worst_rel[k] = max(worst_rel[k], r["worst_rel"][k])
+                    per_kernel[k] += r["kernel_rows"][k]
+            one_losses = [h["loss"] for h in hist]
+            one_norms = [h["grad_norm"] for h in hist]
+            errs = dict(loss=max(rel(a, b) for r in res for a, b in zip(r["losses"], one_losses)),
+                        grad_norm=max(rel(a, b) for r in res
+                                      for a, b in zip(r["grad_norms"], one_norms)))
+            if max(errs.values()) > MESH_TOL:
+                fail(f"{tag}: against one rank {errs} > {MESH_TOL} (losses "
+                     f"{[r['losses'] for r in res]} / {one_losses})")
+            for rank, r in enumerate(res):
+                for k in ("spmm", "combine"):
+                    if r["launches"][k] != steps * expected[k]:
+                        fail(f"{tag}: rank {rank} launched {k} {r['launches'][k]} times, the "
+                             f"code says {steps * expected[k]}")
+                if r["losses"] != res[0]["losses"]:
+                    fail(f"{tag}: rank {rank}'s losses {r['losses']} are not rank 0's")
+            tiles_equal = None
+            if mcfg.sparse_mlp:
+                tiles_equal = all(r["tile_hashes"] == res[0]["tile_hashes"] for r in res)
+                if not tiles_equal or len(res[0]["tile_hashes"]) != steps:
+                    fail(f"{tag}: the replicated CB tiles differ between ranks")
+            routing_equal = None
+            if mcfg.family == "moe":
+                routing_equal = all(len(r["routing"]) == len(routing1) and all(
+                    torch.equal(a, b) for a, b in zip(r["routing"], routing1)) for r in res)
+                if not routing_equal:
+                    fail(f"{tag}: routing counts differ from the one-rank run's")
+            for k in WRAPPERS:
+                n = sum(r["launches"][k] for r in res)
+                launches[k] += n
+                if n:
+                    mesh_launches.setdefault(k, {})[f"{tag} ({world} ranks)"] = n
+            reduced = [f"depth {get_config(arch).num_layers} -> {layers}"] + \
+                ([f"activations {get_config(arch).dtype} -> {dtype}"] if dtype else [])
+            emit(tag.split()[0], mesh=f"{shape[0]}x{shape[1]}", backend="gloo", ranks=world,
+                 one_card=True, config=mcfg.name, layers=layers, reduced=reduced,
+                 traffic={k: v for k, v in TRAIN.items() if k != "arch"} | {"steps": steps},
+                 losses=res[0]["losses"],
+                 grad_norms=res[0]["grad_norms"], one_rank_losses=one_losses,
+                 one_rank_grad_norms=one_norms, rel_err=errs, tolerance=MESH_TOL,
+                 step_ms=max(r["step_ms"][-1] for r in res),
+                 per_rank={k: [r[k] for r in res] for k in ("step_ms", "peak_mem_gb", "launches",
+                                                             "run_s")},
+                 one_rank=dict(step_ms=[h["step_time_s"] * 1e3 for h in hist],
+                               peak_mem_gb=peak1, launches=counted1, run_s=one_s),
+                 expected_launches_per_step=expected, tiles_bit_equal_across_ranks=tiles_equal,
+                 routing_equal=routing_equal,
+                 routing_assignments=int(sum(int(c.sum()) for c in routing1)) if routing1
+                 else None, rank_group_s=group_s)
+            del res
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -2968,6 +3254,9 @@ def main() -> None:
     torch.cuda.empty_cache()                    # the served model's 14 GB, before training's 56
     train_line = run_train(args.seed, per_kernel, launches)
     torch.cuda.empty_cache()
+    mesh_launches = {}                          # kernel -> {mesh run: launches, all ranks}
+    run_mesh(args.seed, train_line, per_kernel, launches, mesh_launches)
+    torch.cuda.empty_cache()
     run_dryrun(train_line, serve_line)
     run_families(args.seed)
 
@@ -2984,7 +3273,8 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"],
             launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]}
-            | solver_launches.get(k, {}) | dist_launches.get(k, {}),
+            | solver_launches.get(k, {}) | dist_launches.get(k, {})
+            | mesh_launches.get(k, {}),
             at=head["matrix"], shape=head["shape"],
             per_matrix=per_kernel[k]))
     print(json.dumps({"kernels": kernels}), flush=True)

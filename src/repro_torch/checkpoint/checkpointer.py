@@ -27,6 +27,12 @@ matching the restored state, e.g. ``sanitize_shardings`` of
 current ``DeviceMesh`` with ``torch.distributed.tensor.distribute_tensor``,
 so a checkpoint written on one device (or by ``repro.checkpoint``)
 restores onto any mesh. Every rank of the mesh calls ``restore``.
+
+A sharded live ``TrainState`` (a model on a mesh) is saved in the same
+layout of whole arrays: every rank calls ``save``, which gathers each
+tensor; rank 0 writes, synchronously, and the others wait on a barrier.
+``restore`` into a sharded live example gives each rank its part, laid
+out like the example.
 """
 from __future__ import annotations
 
@@ -38,19 +44,27 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import distribute_tensor
 
 from repro_torch import errors
-from repro_torch.models.sharding import NamedSharding
+from repro_torch.models.sharding import NamedSharding, param_mesh, param_shardings
 from repro_torch.training.train_state import (
-    TrainState, _children, from_numpy, layout, leaves_with_names, map_leaves, to_numpy,
-    train_state_from_numpy, train_state_to_numpy,
+    TrainState, _children, from_numpy, layout, layouts_of, leaves_with_names, map_leaves,
+    shard_state, to_numpy, train_state_from_numpy, train_state_to_numpy,
 )
 
 
 def _is_live(state) -> bool:
     """A port ``TrainState`` whose params are a model (not the reference layout)."""
     return isinstance(state, TrainState) and isinstance(state.params, torch.nn.Module)
+
+
+def _mesh_of(state):
+    """The mesh of a live state's ``DTensor`` parameters, else None."""
+    if not _is_live(state):
+        return None
+    return param_mesh(next(state.params.parameters()))
 
 
 def _sharding_leaves(tree) -> list[NamedSharding]:
@@ -90,6 +104,12 @@ class Checkpointer:
     def save(self, state: Any, step: int) -> None:
         host_state = (train_state_to_numpy(state) if _is_live(state)
                       else map_leaves(to_numpy, state))
+        if _mesh_of(state) is not None:            # every rank gathered; rank 0 writes
+            self.wait()
+            if dist.get_rank() == 0:
+                self._write(host_state, step)
+            dist.barrier()
+            return
         if self.async_write:
             self.wait()
             self._thread = threading.Thread(
@@ -151,15 +171,14 @@ class Checkpointer:
     ) -> Any:
         """Restore into the structure of ``example_state``, a new state (the
         example is not written). A live ``TrainState`` comes back on its
-        step's device; elsewhere a tensor leaf comes back as a tensor on its
+        step's device, and sharded like the example where its parameters are
+        ``DTensor``s; elsewhere a tensor leaf comes back as a tensor on its
         example's device, anything else as numpy. With ``shardings`` every
-        leaf comes back as a ``DTensor`` on the shardings' mesh; a live
-        ``TrainState``'s model holds local tensors, so restore its reference
-        layout (``training.train_state.layout``) instead."""
-        if shardings is not None and _is_live(example_state):
-            raise errors.InvalidArgError(
-                "a live TrainState's model holds local tensors (tensor parallelism of the "
-                "models is not ported): restore its reference layout with shardings=")
+        leaf comes back as a ``DTensor`` on the shardings' mesh; for a live
+        ``TrainState`` ``shardings`` is a tree of the parameters' layouts in
+        the reference's layout (``sanitize_shardings`` of
+        ``logical_to_sharding(model.axes(), mesh)``), or a ``TrainState`` of
+        such trees, and the moments follow their parameters."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -174,7 +193,17 @@ class Checkpointer:
                 f"{len(leaves_with_names(like))}")
         if _is_live(example_state):
             tree = map_leaves(lambda a, _: a, arrays, like=like)
-            return train_state_from_numpy(tree, example_state.step.device)
+            dev = example_state.step.device
+            if shardings is None and _mesh_of(example_state) is None:
+                return train_state_from_numpy(tree, dev)
+            whole = train_state_from_numpy(tree, "cpu")
+            if shardings is None:
+                layouts = layouts_of(example_state.params)
+            else:
+                tree_sh = shardings.params if isinstance(shardings, TrainState) else shardings
+                layouts = [(sh.mesh, sh.placements)
+                           for sh in param_shardings(whole.params, tree_sh)]
+            return shard_state(whole, layouts, dev)
 
         def leaf(a, like):
             return from_numpy(a, like.device) if isinstance(like, torch.Tensor) else a

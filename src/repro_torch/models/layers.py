@@ -15,8 +15,17 @@ on the card (their plain versions on the CPU). The JAX model calls its
 layer's default, the reference SpMM (``impl="reference"``,
 ``src/repro/sparse/linear.py``), not its Pallas kernel. The logical-axis
 trees (``attention_axes``, ``mlp_axes``, ``CACHE_AXES``) are the
-reference's; the reference's ``sharding.constrain`` calls are left out,
-since the port's layers run local tensors.
+reference's.
+
+**On a mesh** (``DTensor`` weights, ``sharding.shard_params``) a layer
+computes on this rank's rows of the batch and its part of the weights
+(``sharding.local_param``), with the collectives GSPMD places at the
+reference's ``constrain`` points written out: attention and the dense MLP
+are Megatron-style, q / k / v and gate / up split by columns over
+``model`` (their input passes ``sharding.sum_grad``), wo and w_down by
+rows, their partial sums added over ``model`` (``sharding.reduce_over``).
+The CB-sparse MLP replicates its tiles, as the reference does (``mlp_axes``):
+every ``model`` rank runs the same products on its batch rows.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streams import resolve_device
 from repro_torch.sparse.linear import cb_linear_apply, cb_spec_random, cb_tiles_init
+
+from . import sharding as S
 
 
 def _normal(generator: torch.Generator | None, shape: tuple, scale: float,
@@ -63,12 +74,13 @@ def vocab_logit_mask(vocab_real: int, vocab_padded: int, device=None) -> torch.T
     return torch.where(ids < vocab_real, 0.0, -1e9).to(torch.float32)
 
 
-def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Suppress padding-vocab logits (no-op when vocab needs no padding)."""
+def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig, offset: int = 0) -> torch.Tensor:
+    """Suppress padding-vocab logits (no-op when vocab needs no padding);
+    ``logits`` hold the vocab columns from ``offset`` on."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
     mask = vocab_logit_mask(cfg.vocab_size, cfg.padded_vocab, logits.device)
-    return logits + mask.to(logits.dtype)
+    return logits + mask[offset:offset + logits.shape[-1]].to(logits.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +227,19 @@ def attention_apply(
     a retried step starts from the same bits).
     """
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    mesh = S.param_mesh(params["wq"])
+    tp = S.model_sharded(params["wq"])          # local heads, Megatron-style
+    part = ("model",) if tp else ()
+    if tp:
+        x = S.sum_grad(x, mesh)
+    q = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wq"]).to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wk"], part).to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wv"], part).to(dt))
+    if tp and not S.model_sharded(params["wk"]):
+        k, v = _local_kv_heads(k, v, q.shape[2], cfg, mesh)
     if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"])
-        k = rmsnorm(k, params["k_norm"])
+        q = rmsnorm(q, S.local_param(params["q_norm"], part))
+        k = rmsnorm(k, S.local_param(params["k_norm"], part))
     cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]   # broadcast over heads
     if positions.ndim == 1:
@@ -242,8 +261,23 @@ def attention_apply(
         kv_len = torch.clamp(pos + 1, max=S_max)
         out = attention_core(q, ck, cv, causal=False, window=None,
                              kv_valid_len=kv_len, chunk=cfg.attn_chunk)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    y = torch.einsum("bshk,hkd->bsd", out, S.local_param(params["wo"]).to(dt))
+    if tp:
+        y = S.reduce_over(y, mesh, ("model",))   # wo's row-parallel partial sums
     return y, new_cache
+
+
+def _local_kv_heads(k, v, h_local: int, cfg: ModelConfig, mesh):
+    """The KV heads this rank's query heads read, where the KV heads could
+    not split over ``model`` (fewer than its ranks, or not dividing): q head
+    j reads KV head j // (H / Hkv), as ``attention_core``'s repeat does."""
+    groups = cfg.num_heads // cfg.num_kv_heads
+    q0 = S.axis_rank(mesh, "model") * h_local
+    first, last = q0 // groups, (q0 + h_local - 1) // groups
+    if not (first == last or (q0 % groups == 0 and h_local % groups == 0)):
+        raise errors.InvalidArgError(f"query heads {q0}..{q0 + h_local - 1} of this rank do not "
+                                     f"cover whole KV groups of {groups}")
+    return k[:, :, first:last + 1], v[:, :, first:last + 1]
 
 
 def _scatter_step(cache: torch.Tensor, kv: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -335,11 +369,32 @@ def mlp_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, specs=None,
     on a CPU one)."""
     dt = x.dtype
     if cfg.sparse_mlp:
+        mesh = S.param_mesh(params["gate"]["tiles"])
+
         def lin(name, inp):
-            return cb_linear_apply(params[name], specs[name], inp, impl=impl, device=inp.device)
+            # on a mesh: the rows of this rank as a DTensor (the reference's
+            # ("batch", "seq", "embed") / ("batch", "seq", "mlp") points); the
+            # tiles are replicated, so every model rank runs the same product
+            y = cb_linear_apply(params[name], specs[name],
+                                S.as_dtensor(inp, mesh, "batch", "seq", None),
+                                impl=impl, device=inp.device)
+            return y if mesh is None else y.to_local()
 
         h = F.silu(lin("gate", x)) * lin("up", x)
         return lin("down", h)
-    g = x @ params["w_gate"].to(dt)
-    u = x @ params["w_up"].to(dt)
-    return (F.silu(g) * u) @ params["w_down"].to(dt)
+    mesh = S.param_mesh(params["w_gate"])
+    tp = S.model_sharded(params["w_gate"])     # gate / up by columns, down by rows
+    return swiglu(x, params["w_gate"], params["w_up"], params["w_down"], mesh if tp else None)
+
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down, tp_mesh=None) -> torch.Tensor:
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` in x's dtype; with
+    ``tp_mesh`` the weights are split over its ``model`` axis (the input's
+    gradient and the output summed over it)."""
+    dt = x.dtype
+    if tp_mesh is not None:
+        x = S.sum_grad(x, tp_mesh)
+    g = x @ S.local_param(w_gate).to(dt)
+    u = x @ S.local_param(w_up).to(dt)
+    y = (F.silu(g) * u) @ S.local_param(w_down).to(dt)
+    return y if tp_mesh is None else S.reduce_over(y, tp_mesh, ("model",))

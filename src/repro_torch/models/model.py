@@ -8,6 +8,8 @@
     loss, metrics = model.loss(params, batch) # batch: tokens, targets (+ patch_embeds, frames)
     state = model.init_decode_state(batch, max_len)
     logits, state = model.decode_step(params, state, tokens, pos)
+    model = Model(cfg, mesh=mesh)             # on a DeviceMesh: init gives DTensor parameters
+    params = model.shard(params)              # or shard weights drawn / loaded whole
 
 Every family of the reference is ported: dense, MoE, SSM and VLM
 (``transformer``), hybrid (``hybrid``) and encoder-decoder (``encdec``); an
@@ -19,6 +21,14 @@ the reference's layout (``param_tree``), for ``sharding.logical_to_sharding``.
 ``params_from_numpy`` brings the reference's parameter tree across and
 ``param_tree`` maps the parameters (or anything with one value per
 parameter, such as an optimizer's moments) back into it.
+
+``mesh=`` (a ``DeviceMesh`` with ``data`` / ``model`` axes, ``pod`` too) trains
+the dense, VLM and MoE families on it: ``init`` draws the whole weights on
+every rank from the same generator and keeps each rank's part
+(``sharding.shard_params``, the reference's sharded train step's layout);
+``forward`` / ``loss`` take a batch split over ``batch`` (``sharding.
+place_batch``). Another family on a mesh raises ``InvalidArgError`` (ROADMAP
+A.10c).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from repro_torch.core.streams import _as_tensor, resolve_device
 
 from . import encdec, hybrid, moe, transformer
 from .layers import build_mlp_specs
+from .sharding import shard_params
 
 
 class Model:
@@ -38,11 +49,17 @@ class Model:
     ``"cuda"`` (the kernels) or ``"reference"`` (the plain oracle).
     ``expert_shard=(i, n)`` (MoE family only) makes ``init`` give each MoE
     layer shard i of n of its experts, as one chip of n in expert
-    parallelism holds them; the reference has no such option."""
+    parallelism holds them; the reference has no such option. ``mesh``: see
+    the module's docstring."""
 
     def __init__(self, cfg: ModelConfig, device=None, *, impl: str = "cuda",
-                 expert_shard: tuple[int, int] | None = None):
+                 expert_shard: tuple[int, int] | None = None, mesh=None):
         transformer.check_family(cfg)
+        if mesh is not None:
+            transformer.check_mesh_family(cfg)
+            if expert_shard is not None:
+                raise errors.InvalidArgError("expert_shard and mesh: the mesh shards the "
+                                             "experts over 'model' itself")
         if expert_shard is not None:
             if cfg.family != "moe":
                 raise errors.InvalidArgError(f"expert_shard needs the moe family, not "
@@ -52,6 +69,7 @@ class Model:
         self.device = resolve_device(device)
         self.impl = impl
         self.expert_shard = expert_shard
+        self.mesh = mesh
         self.specs = build_mlp_specs(cfg) if cfg.sparse_mlp else None
         self._mod = {"hybrid": hybrid, "encdec": encdec}.get(cfg.family, transformer)
 
@@ -64,8 +82,20 @@ class Model:
 
     def init(self, generator: torch.Generator | None):
         """The parameters on the model's device, drawn from ``generator`` (on
-        the meta device nothing is drawn, and ``generator`` may be None)."""
-        return self._init(generator, self.device)
+        the meta device nothing is drawn, and ``generator`` may be None); on
+        the model's mesh, each rank's part of them."""
+        params = self._init(generator, self.device)
+        return params if self.mesh is None else self.shard(params)
+
+    def shard(self, params, mesh=None):
+        """``params`` (whole, equal on every rank) distributed over ``mesh``
+        (default: the model's) in place, as ``sharding.shard_params`` lays
+        them out; returns them."""
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is None:
+            raise errors.InvalidArgError("shard needs a mesh: Model(cfg, mesh=) or mesh=")
+        transformer.check_mesh_family(self.cfg)
+        return shard_params(params, self, mesh)
 
     def abstract_init(self, generator: torch.Generator | None = None):
         """Shape-only init, the dry run's entry point: the parameters built on

@@ -20,13 +20,17 @@ for bit (0 + a + b rounds once, in either order).
 """
 from __future__ import annotations
 
+import contextlib
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
 
-from .layers import _normal
+from . import sharding as S
+from .layers import _normal, swiglu
 
 
 def moe_axes(cfg: ModelConfig) -> dict:
@@ -87,22 +91,24 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def _dispatch(params, cfg: ModelConfig, xg: torch.Tensor, C: int, first_expert: int = 0):
-    """Sort-based top-k dispatch of every token group at once. xg (G, T, d).
+class _Route(NamedTuple):
+    """Every group's assignments in expert order: expert, token, gate, position
+    within the expert, index in the (token, k) layout; and the groups' aux."""
+    s_expert: torch.Tensor
+    s_token: torch.Tensor
+    s_gate: torch.Tensor
+    pos: torch.Tensor
+    order: torch.Tensor
+    aux: torch.Tensor
 
-    Returns (buf (G, El, C, d), meta) for the El experts held from
-    ``first_expert`` on (El is ``w_gate``'s first dim): ``meta`` is (buf_idx,
-    s_token, s_gate, keep, aux, order), each (G, T*K) but ``aux`` (G,);
-    entry j of a group is the j-th assignment in expert order, ``keep`` says
-    it is within capacity and held here, and ``order`` is its index in the
-    (token, k) layout."""
+
+def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Route:
+    """Top-k routing of every token group at once. xg (G, T, d)."""
     G, T, d = xg.shape
     E, K = cfg.num_experts, cfg.top_k
-    El = params["w_gate"].shape[0]
-    dt = xg.dtype
     dev = xg.device
 
-    logits = (xg @ params["router"].to(dt)).float()                # (G, T, E)
+    logits = (xg @ router.to(xg.dtype)).float()                     # (G, T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)            # (G, T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
@@ -124,16 +130,41 @@ def _dispatch(params, cfg: ModelConfig, xg: torch.Tensor, C: int, first_expert: 
     # position within expert = rank - start of the expert's run
     starts = torch.searchsorted(s_expert, torch.arange(E, device=dev).expand(G, E).contiguous())
     pos = torch.arange(T * K, device=dev) - torch.gather(starts, 1, s_expert)
-    local = s_expert - first_expert
-    keep = (pos < C) & (local >= 0) & (local < El)
+    return _Route(s_expert, s_token, s_gate, pos, order, aux)
 
-    buf_idx = torch.where(keep, local * C + pos, El * C)            # overflow slot
-    rows = torch.arange(G, device=dev)[:, None]
-    buf = torch.zeros((G, El * C + 1, d), dtype=dt, device=dev)
+
+def _slots(r: _Route, C: int, first_expert: int, El: int) -> tuple:
+    """(buf_idx, keep) of the El experts from ``first_expert`` on: an
+    assignment is kept when within capacity and held here; the rest go to
+    the overflow slot El * C."""
+    local = r.s_expert - first_expert
+    keep = (r.pos < C) & (local >= 0) & (local < El)
+    return torch.where(keep, local * C + r.pos, El * C), keep
+
+
+def _fill(r: _Route, values: torch.Tensor, buf_idx: torch.Tensor, El: int, C: int):
+    """The (G, El, C, d) expert buffer: each kept assignment's token row."""
+    G, _, d = values.shape
+    rows = torch.arange(G, device=values.device)[:, None]
+    buf = torch.zeros((G, El * C + 1, d), dtype=values.dtype, device=values.device)
     # the kept slots are distinct; the overflow row takes the rest and is dropped
-    buf = buf.index_put((rows, buf_idx), xg[rows, s_token])
-    buf = buf[:, :-1].reshape(G, El, C, d)
-    return buf, (buf_idx, s_token, s_gate, keep, aux, order)
+    buf = buf.index_put((rows, buf_idx), values[rows, r.s_token])
+    return buf[:, :-1].reshape(G, El, C, d)
+
+
+def _dispatch(params, cfg: ModelConfig, xg: torch.Tensor, C: int, first_expert: int = 0):
+    """Sort-based top-k dispatch of every token group at once. xg (G, T, d).
+
+    Returns (buf (G, El, C, d), meta) for the El experts held from
+    ``first_expert`` on (El is ``w_gate``'s first dim): ``meta`` is (buf_idx,
+    s_token, s_gate, keep, aux, order), each (G, T*K) but ``aux`` (G,);
+    entry j of a group is the j-th assignment in expert order, ``keep`` says
+    it is within capacity and held here, and ``order`` is its index in the
+    (token, k) layout."""
+    El = params["w_gate"].shape[0]
+    r = _route(params["router"], cfg, xg)
+    buf_idx, keep = _slots(r, C, first_expert, El)
+    return _fill(r, xg, buf_idx, El, C), (buf_idx, r.s_token, r.s_gate, keep, r.aux, r.order)
 
 
 def _combine(out_buf: torch.Tensor, meta, T: int, K: int, dt) -> torch.Tensor:
@@ -154,6 +185,31 @@ def _combine(out_buf: torch.Tensor, meta, T: int, K: int, dt) -> torch.Tensor:
     return y
 
 
+# Routing counts are recorded while ``record_routing`` is active (a list per
+# context); None otherwise, one check a layer.
+_routing: list | None = None
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Collect each MoE layer's routing while active: a list that gets, per
+    ``moe_apply`` call, the (G, E) int64 count of assignments kept per
+    expert of this rank's token groups (device tensors, nothing read back)."""
+    global _routing
+    old, _routing = _routing, []
+    try:
+        yield _routing
+    finally:
+        _routing = old
+
+
+def _record(r: _Route, C: int, E: int) -> None:
+    if _routing is not None:
+        _, keep = _slots(r, C, 0, E)
+        counts = torch.zeros((keep.shape[0], E), dtype=torch.int64, device=keep.device)
+        _routing.append(counts.scatter_add_(1, r.s_expert, keep.long()).detach())
+
+
 def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
               first_expert: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out, aux_loss).
@@ -162,33 +218,64 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
     capacity is per group; groups=1 is global dispatch. The group count
     falls back until it divides the token count, as in the reference.
     ``params`` holds the experts from ``first_expert`` on (all by default).
+
+    On a mesh (``DTensor`` weights; x is this rank's batch rows) the
+    reference's layout (``src/repro/models/moe.py:133-148``): the groups
+    split over the batch axes (x's rows are whole groups), the routing of
+    each is computed on every ``model`` rank alike, each ``model`` rank runs
+    the expert products of its E / model experts (``experts -> model``),
+    and their outputs are gathered over ``model`` before the combine. The
+    aux loss is the mean over every group of the global batch.
     """
-    B, S, d = x.shape
-    T = B * S
-    G = max(1, min(cfg.moe_groups, T))   # batch-1 decode: fall back to G=1
-    while T % G:
-        G -= 1
+    mesh = S.param_mesh(params["w_gate"])
+    B, S_, d = x.shape
+    T = B * S_
+    D = 1 if mesh is None else S.batch_width(mesh)
+    G = _groups(T * D, cfg)                # the groups of the global batch
+    if G % D:
+        raise errors.InvalidArgError(
+            f"{G} token groups do not split over the {D} ranks of {S.batch_axes(mesh)}")
+    G_l, E = G // D, cfg.num_experts
     dt = x.dtype
-    xg = x.reshape(G, T // G, d)
-    C = _capacity(T // G, cfg)
+    xg = x.reshape(G_l, T // G_l, d)       # this rank's groups, whole
+    C = _capacity(T // G_l, cfg)
 
-    buf, meta = _dispatch(params, cfg, xg, C, first_expert)    # buf (G, El, C, d)
-
-    # ---- expert FFN (batched over the group and expert axes) ---------------
-    g = torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(dt))
-    h = F.silu(g) * u
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(dt))
-
-    y = _combine(out_buf, meta, T // G, cfg.top_k, dt)
-    aux = meta[4].mean()
+    w_gate, w_up, w_down = (S.local_param(params[k]) for k in ("w_gate", "w_up", "w_down"))
+    El = w_gate.shape[0]
+    ep = S.model_sharded(params["w_gate"])
+    if ep:
+        first_expert = S.axis_rank(mesh, "model") * El
+    r = _route(S.local_param(params["router"]), cfg, xg)
+    _record(r, C, E)
+    buf_idx, keep = _slots(r, C, first_expert, El)
+    # on a mesh the buffer holds this rank's experts' rows: x's gradient from them is partial
+    buf = _fill(r, S.sum_grad(xg, mesh) if ep else xg, buf_idx, El, C)    # (G, El, C, d)
+    out_buf = _experts(buf, w_gate, w_up, w_down)
+    if ep:
+        out_buf = S.gather_over(out_buf, mesh, "model", 1, grad="slice")
+        buf_idx, keep = _slots(r, C, 0, E)
+    y = _combine(out_buf, (buf_idx, r.s_token, r.s_gate, keep, r.aux, r.order),
+                 T // G_l, cfg.top_k, dt)
+    aux = S.global_mean(r.aux, mesh)
 
     y = y.reshape(T, d)
     if cfg.moe_shared_expert:
         sh = params["shared"]
-        xt = x.reshape(T, d)
-        gs = xt @ sh["w_gate"].to(dt)
-        us = xt @ sh["w_up"].to(dt)
-        y = y + (F.silu(gs) * us) @ sh["w_down"].to(dt)
+        y = y + swiglu(x.reshape(T, d), sh["w_gate"], sh["w_up"], sh["w_down"],
+                       mesh if S.model_sharded(sh["w_gate"]) else None)
+    return y.reshape(B, S_, d), aux
 
-    return y.reshape(B, S, d), aux
+
+def _groups(T: int, cfg: ModelConfig) -> int:
+    G = max(1, min(cfg.moe_groups, T))   # batch-1 decode: fall back to G=1
+    while T % G:
+        G -= 1
+    return G
+
+
+def _experts(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The expert FFN, batched over the group and expert axes."""
+    dt = buf.dtype
+    g = torch.einsum("gecd,edf->gecf", buf, w_gate.to(dt))
+    u = torch.einsum("gecd,edf->gecf", buf, w_up.to(dt))
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down.to(dt))

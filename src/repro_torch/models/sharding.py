@@ -17,8 +17,26 @@ Default rules implement Megatron-TP x FSDP x DP:
 
 A mesh here is anything with ``mesh_dim_names`` and ``shape`` (a
 ``DeviceMesh``, or a stand-in naming a production shape that this process
-does not hold). The port's models run local tensors (tensor parallelism of
-their layers is not ported), so they call no ``constrain`` yet.
+does not hold).
+
+**The mesh's compute** (the second half of this module). Where the
+reference hands GSPMD a layout and lets it place the collectives, the port
+keeps the layout in the state and writes the collectives out:
+``shard_params`` turns a model's parameters into ``DTensor``s placed by
+``sanitize_shardings(logical_to_sharding(model.axes(), mesh))``; each layer
+body takes ``local_param`` of its weights (the rank's shard, gathered over
+``data`` where FSDP splits it, its gradient reduce-scattered back) and
+computes on local tensors; and at the reference's ``constrain`` points the
+layers call the differentiable collectives ``sum_grad`` (Megatron's f:
+identity forward, gradient summed over ``model``), ``reduce_over`` (g: the
+row-parallel partial sums added, identity backward) and ``gather_over``.
+Every collective over an axis of one rank is the identity and runs nothing,
+so a one-rank mesh computes the local model's ops in the local model's
+order. ``constrain`` redistributes a ``DTensor``; ``as_dtensor`` names a
+local activation's layout at a constrain point. Gloo serves CUDA tensors
+by staging them through the host (NCCL refuses two ranks on one card, and
+``DTensor.full_tensor`` crashes under gloo on CUDA in torch 2.11), so no
+collective here goes through ``DTensor``'s own redistribution.
 """
 from __future__ import annotations
 
@@ -27,7 +45,11 @@ import dataclasses
 import threading
 from typing import Any
 
+import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch import errors
 
 # logical axis -> mesh axis (or tuple of mesh axes, or None = replicated)
 DEFAULT_RULES = {
@@ -196,3 +218,347 @@ def constrain(x, *axes: str | None):
     if _ctx.mesh is None or not isinstance(x, DTensor):
         return x
     return x.redistribute(_ctx.mesh, NamedSharding(_ctx.mesh, spec_for(axes)).placements)
+
+
+def placements_for(mesh, *axes: str | None) -> tuple:
+    """The placements of a tensor whose dims carry the logical ``axes``, under
+    the active rules when ``mesh`` is the active mesh, else the default ones."""
+    if _ctx.mesh is mesh:
+        return NamedSharding(mesh, spec_for(axes)).placements
+    with axis_rules(mesh):
+        return NamedSharding(mesh, spec_for(axes)).placements
+
+
+def as_dtensor(x: torch.Tensor, mesh, *axes: str | None):
+    """A rank's local activation as the ``DTensor`` it is a shard of, its
+    dims carrying the logical ``axes`` (no communication); ``constrain``
+    then holds it to the active rules' layout. Without a mesh, ``x`` itself."""
+    if mesh is None:
+        return x
+    return constrain(DTensor.from_local(x, mesh, placements_for(mesh, *axes), run_check=False),
+                     *axes)
+
+
+# ---------------------------------------------------------------------------
+# the mesh's compute: local tensors and explicit collectives
+# ---------------------------------------------------------------------------
+
+def axis_size(mesh, axis: str) -> int:
+    """Ranks along ``axis`` (1 for an axis the mesh lacks)."""
+    names = tuple(mesh.mesh_dim_names)
+    return int(mesh.size(names.index(axis))) if axis in names else 1
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 for an axis the mesh lacks)."""
+    return mesh.get_local_rank(axis) if axis in tuple(mesh.mesh_dim_names) else 0
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes the batch shards over (the rules' ``batch``: pod, data)."""
+    mapped = DEFAULT_RULES["batch"]
+    return tuple(a for a in mapped if a in tuple(mesh.mesh_dim_names))
+
+
+def batch_width(mesh) -> int:
+    w = 1
+    for a in batch_axes(mesh):
+        w *= axis_size(mesh, a)
+    return w
+
+
+def param_mesh(t):
+    """The mesh of a ``DTensor`` (a sharded model's parameter), else None."""
+    return t.device_mesh if isinstance(t, DTensor) else None
+
+
+def sharded_axes(t) -> tuple[str, ...]:
+    """The mesh axes a ``DTensor`` is split over (none for a local tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(n for n, p in zip(t.device_mesh.mesh_dim_names, t.placements) if p.is_shard())
+
+
+def model_sharded(t) -> bool:
+    """Whether a parameter is split over ``model`` (its layer runs Megatron-style)."""
+    return "model" in sharded_axes(t) and axis_size(t.device_mesh, "model") > 1
+
+
+# the single-tensor collectives, under their names in this torch (newer
+# releases renamed *_into_tensor / *_tensor to *_single)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def _staged(t: torch.Tensor, group):
+    """c10d's operand for ``t``: gloo takes CUDA tensors through the host."""
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        return t.detach().cpu(), True  # cblint: disable=CB211 -- gloo's staging copy
+    return t, False
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``axis`` (a new tensor; ``t`` itself on one rank)."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    group = mesh.get_group(axis)
+    buf, staged = _staged(t.contiguous(), group)
+    buf = buf.clone() if not staged else buf
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(t.device) if staged else buf
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The shards of ``axis`` joined along ``dim``, in rank order."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = mesh.get_group(axis)
+    src, staged = _staged(t.movedim(dim, 0).contiguous(), group)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _ALL_GATHER(out, src, group=group)
+    out = out.to(t.device) if staged else out
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``t`` summed over ``axis``, this rank's part of it along ``dim``."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = mesh.get_group(axis)
+    src, staged = _staged(t.movedim(dim, 0).contiguous(), group)
+    if src.shape[0] % n:
+        raise errors.InvalidArgError(f"dim {dim} of size {src.shape[0]} does not split "
+                                     f"{n} ways over {axis!r}")
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _REDUCE_SCATTER(out, src, group=group)
+    out = out.to(t.device) if staged else out
+    return out.movedim(0, dim)
+
+
+def _my_part(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = axis_size(mesh, axis)
+    return t.chunk(n, dim)[axis_rank(mesh, axis)] if n > 1 else t
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward: sum over the axes. Backward: the cotangent as it is (every rank
+    downstream holds the same sum, so each gets the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        for a in axes:
+            x = all_reduce(x, mesh, a)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Forward: the identity. Backward: the cotangent summed over the axes
+    (each rank's part of the compute gave only its share of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = all_reduce(g, ctx.mesh, a)
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: all-gather along ``dim``. Backward: reduce-scatter (``grad=
+    "sum"``, each rank's compute downstream differs: FSDP) or this rank's
+    slice (``"slice"``: every rank downstream computes the same thing)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, grad):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.grad = mesh, axis, dim, grad
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim)
+        else:
+            g = _my_part(g, ctx.mesh, ctx.axis, ctx.dim).contiguous()
+        return g, None, None, None, None
+
+
+def _live(mesh, axes) -> tuple:
+    return tuple(a for a in axes if axis_size(mesh, a) > 1)
+
+
+def reduce_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Partial results summed over ``axes`` (g); identity backward."""
+    axes = () if mesh is None else _live(mesh, axes)
+    return _Reduce.apply(x, mesh, axes) if axes else x
+
+
+def sum_grad(x: torch.Tensor, mesh, axes=("model",)) -> torch.Tensor:
+    """The input of a split compute (f): itself, its gradient summed over ``axes``."""
+    axes = () if mesh is None else _live(mesh, axes)
+    return _SumGrad.apply(x, mesh, axes) if axes else x
+
+
+def gather_over(x: torch.Tensor, mesh, axis: str, dim: int, grad: str = "sum") -> torch.Tensor:
+    """The shards of ``axis`` joined along ``dim`` (see ``_Gather`` for ``grad``)."""
+    if mesh is None or axis_size(mesh, axis) == 1:
+        return x
+    return _Gather.apply(x, mesh, axis, dim, grad)
+
+
+def global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of a batch-sharded tensor over the global batch: each rank's
+    mean (the shards are of one size) averaged over the batch axes."""
+    m = x.mean()
+    if mesh is None or batch_width(mesh) == 1:
+        return m
+    return reduce_over(m, mesh, batch_axes(mesh)) / batch_width(mesh)
+
+
+def local_param(p, partial=()):
+    """A weight as this rank's compute uses it.
+
+    A local tensor is itself. A ``DTensor`` parameter gives its shard,
+    all-gathered along each dim split over a batch axis (FSDP: ``w_embed ->
+    data``; the gradient is reduce-scattered back), kept split where it is
+    split over ``model`` (TP: the layer computes its part). Its gradient is
+    summed over each batch axis it is replicated on (the ranks saw different
+    rows of the batch), and over the axes of ``partial`` on which it is
+    replicated but used by a split compute (a norm of the local heads)."""
+    if not isinstance(p, DTensor):
+        return p
+    mesh = p.device_mesh
+    x = p.to_local()
+    names = tuple(mesh.mesh_dim_names)
+    batch = batch_axes(mesh)
+    for name, pl in zip(names, p.placements):
+        if pl.is_shard() and name != "model":
+            x = gather_over(x, mesh, name, pl.dim)
+    summed = tuple(n for n, pl in zip(names, p.placements)
+                   if pl.is_replicate() and (n in batch or n in partial))
+    return sum_grad(x, mesh, summed)
+
+
+def distribute_local(t: torch.Tensor, mesh, placements, device=None) -> DTensor:
+    """``t``, whole and equal on every rank, as a ``DTensor`` of ``placements``:
+    each rank keeps its own part (no communication), moved to ``device`` (by
+    default where ``t`` is). Dims split evenly."""
+    local = t
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n = int(mesh.size(i))
+            if local.shape[pl.dim] % n:
+                raise errors.InvalidArgError(
+                    f"dim {pl.dim} of a {tuple(t.shape)} tensor does not split {n} ways")
+            local = local.chunk(n, pl.dim)[mesh.get_local_rank(i)]
+    local = local.contiguous() if local is t else local.clone()
+    if device is not None:
+        local = local.to(device)
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def full_tensor(t):
+    """A ``DTensor``'s whole tensor on every rank, by c10d all-gathers (a local
+    tensor is itself). ``DTensor.full_tensor`` is not used: it crashes under
+    gloo on CUDA tensors in torch 2.11."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, x = t.device_mesh, t.to_local()
+    with torch.no_grad():
+        for name, pl in zip(mesh.mesh_dim_names, t.placements):
+            if pl.is_shard():
+                x = all_gather(x, mesh, name, pl.dim)
+    return x
+
+
+def param_shardings(params, tree) -> list[NamedSharding]:
+    """One ``NamedSharding`` per parameter of ``params`` (``parameters()``
+    order) from ``tree``, a tree of them in the reference's stacked layout:
+    a stacked leaf's spec loses its layer axes."""
+    from .model import _path
+
+    out = []
+    for name, _ in params.named_parameters():
+        path, idx = _path(params, name)
+        node = tree
+        for k in path:
+            node = node[k]
+        if not isinstance(node, NamedSharding):
+            raise errors.InvalidArgError(f"shardings holds {node!r} for parameter {name}")
+        out.append(NamedSharding(node.mesh, tuple(node.spec[len(idx):])))
+    return out
+
+
+def model_shardings(params, axes_tree, mesh) -> list[NamedSharding]:
+    """The layout of each parameter, as the reference's sharded step takes it:
+    ``sanitize_shardings(shapes, logical_to_sharding(axes, mesh), mesh)``."""
+    from .model import param_tree
+
+    tree = sanitize_shardings(param_tree(params), logical_to_sharding(axes_tree, mesh), mesh)
+    return param_shardings(params, tree)
+
+
+def _set_param(module, name: str, value) -> None:
+    *path, leaf = name.split(".")
+    for k in path:
+        module = module[int(k)] if k.isdigit() else getattr(module, k)
+    module._parameters[leaf] = value
+
+
+@torch.no_grad()
+def shard_params(params, model, mesh):
+    """Distribute a model's parameters over ``mesh``, in place: each becomes a
+    ``DTensor`` parameter placed as the reference's sharded train step places
+    it (``model_shardings`` of ``model.axes()``): FSDP ``w_embed -> data``;
+    ``heads`` / ``kv`` / ``mlp`` / ``vocab`` / ``experts -> model``; the rest
+    (norms, the router's expert dim, the CB tiles) replicated. Every rank
+    passes the same whole weights; each keeps its part. Returns ``params``."""
+    shs = model_shardings(params, model.axes(), mesh)
+    named = list(params.named_parameters())
+    for (name, p), sh in zip(named, shs, strict=True):
+        _set_param(params, name, torch.nn.Parameter(distribute_local(p.detach(), mesh,
+                                                                     sh.placements)))
+    return params
+
+
+def place_batch(batch: dict, mesh) -> dict:
+    """The global batch (equal on every rank) as ``DTensor``s split on the
+    leading dim over ``batch -> (pod, data)``, replicated over ``model``."""
+    out = {}
+    w = batch_width(mesh)
+    for k, v in batch.items():
+        if v.shape[0] % w:
+            raise errors.InvalidArgError(
+                f"batch[{k!r}] has {v.shape[0]} rows, which do not split over the "
+                f"{w} ranks of {batch_axes(mesh)}")
+        out[k] = distribute_local(v, mesh, placements_for(mesh, "batch",
+                                                          *(None,) * (v.ndim - 1)))
+    return out
+
+
+def local_batch(x, mesh):
+    """This rank's rows of a batch tensor: a ``DTensor``'s local shard, or the
+    rank's part of a whole tensor that every rank holds."""
+    if isinstance(x, DTensor):
+        return x.to_local()
+    if x is None or mesh is None:
+        return x
+    w = batch_width(mesh)
+    if w == 1:
+        return x
+    i = 0
+    for a in batch_axes(mesh):
+        i = i * axis_size(mesh, a) + axis_rank(mesh, a)
+    return x.chunk(w, 0)[i]

@@ -16,6 +16,18 @@ autograd records:
 
 The hybrid (zamba2) and encoder-decoder (whisper) families wrap these
 layers in ``hybrid.py`` / ``encdec.py``.
+
+**On a mesh** (``Model(cfg, mesh=)``: ``DTensor`` parameters) ``forward`` and
+``lm_loss`` take the batch as ``DTensor``s split over ``batch`` (or whole on
+every rank) and compute on this rank's rows, at the reference's constrain
+points (``src/repro/models/transformer.py:216, 247``): the embedding reads
+its ``vocab``-split table vocab-parallel (each ``model`` rank looks up the
+ids it holds, the rows added over ``model``), the unembedding and the
+float32 cross-entropy are vocab-parallel (the log-sum-exp and the target
+logit added over ``model``), and the means are over the global batch. The
+dense, VLM and MoE families run there; SSM, hybrid and encoder-decoder on a
+mesh are ROADMAP A.10c, and decoding on one is not ported (the reference
+serves one device).
 """
 from __future__ import annotations
 
@@ -33,9 +45,11 @@ from repro_torch.core.streams import resolve_device
 
 from . import layers as L
 from . import moe as moe_mod
+from . import sharding as S
 from . import ssm as ssm_mod
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "encdec")
+MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 class LMOutputs(NamedTuple):
@@ -47,6 +61,14 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise errors.InvalidArgError(
             f"unknown family {cfg.family!r} ({cfg.name}); known: {', '.join(PORTED_FAMILIES)}")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    if cfg.family not in MESH_FAMILIES:
+        raise errors.InvalidArgError(
+            f"the {cfg.family} family ({cfg.name}) on a mesh is not ported (ROADMAP A.10c): "
+            f"its constrain points are not written; families on a mesh: "
+            f"{', '.join(MESH_FAMILIES)}")
 
 
 def param_dict(tree: dict) -> nn.ParameterDict:
@@ -88,10 +110,11 @@ class DecoderLayer(nn.Module):
         """Returns (h, aux, new_cache); ``cache`` as in ``layers.attention_apply``,
         ``aux`` the MoE layer's load-balancing loss (0 for a dense layer)."""
         attn_out, new_cache = L.attention_apply(
-            dict(self.attn.items()), cfg, L.rmsnorm(h, self.norm1), positions=positions,
+            dict(self.attn.items()), cfg, L.rmsnorm(h, S.local_param(self.norm1)),
+            positions=positions,
             causal=True, cache=cache, window=cfg.swa_window)
         h = h + attn_out
-        hn = L.rmsnorm(h, self.norm2)
+        hn = L.rmsnorm(h, S.local_param(self.norm2))
         if self.moe:
             ffn_out, aux = moe_mod.moe_apply(self.ffn, cfg, hn, self.first_expert)
         else:
@@ -128,8 +151,25 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) ->
     F.embedding, not embed[tokens]: the backward of an index is
     index_put_(accumulate=True), which may add a repeated token's rows in
     another order on every CUDA run; embedding's backward sums them in a
-    fixed order, so two training runs stay bit-equal."""
-    return F.embedding(tokens.long(), embed).to(cfg.activation_dtype)
+    fixed order, so two training runs stay bit-equal.
+
+    A table split over ``model`` by vocab is read vocab-parallel: each rank
+    looks up the ids in its range (zeros elsewhere) and the rows are added
+    over ``model``, exactly, in float32 before the cast."""
+    w = S.local_param(embed)
+    if not S.model_sharded(embed):
+        return F.embedding(tokens.long(), w).to(cfg.activation_dtype)
+    ids, inside = _vocab_ids(tokens, embed.device_mesh, w.shape[0])
+    rows = F.embedding(ids, w) * inside[..., None]
+    return S.reduce_over(rows, embed.device_mesh, ("model",)).to(cfg.activation_dtype)
+
+
+def _vocab_ids(ids: torch.Tensor, mesh, v_local: int):
+    """Ids shifted into this ``model`` rank's vocab range (clamped), and
+    whether each lies in it."""
+    local = ids.long() - S.axis_rank(mesh, "model") * v_local
+    inside = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), inside
 
 
 def _prepend_layers_axis(axes):
@@ -303,11 +343,14 @@ def forward(
     the MoE layers' aux loss over ``cfg.num_layers``."""
     check_family(cfg)
     dt = cfg.activation_dtype
-    h = params.embed_tokens(tokens, cfg)
+    mesh = S.param_mesh(params.embed)
+    h = params.embed_tokens(S.local_batch(tokens, mesh), cfg)
     n_prefix = 0
     if patch_embeds is not None:
-        h = torch.cat([patch_embeds.to(dt), h], dim=1)
+        h = torch.cat([S.local_batch(patch_embeds, mesh).to(dt), h], dim=1)
         n_prefix = patch_embeds.shape[1]
+    if mesh is not None:
+        h = S.as_dtensor(h, mesh, "batch", "seq", "embed").to_local()
     positions = torch.arange(h.shape[1], device=h.device)
 
     def body(layer, h):
@@ -319,13 +362,34 @@ def forward(
     for layer in params.layers:
         h, aux_i = body(layer, h)
         aux = aux + aux_i
-    h = L.rmsnorm(h, params.final_norm)
+    h = L.rmsnorm(h, S.local_param(params.final_norm))
     if n_prefix:
         h = h[:, n_prefix:, :]
     if last_only:
         h = h[:, -1:, :]
-    logits = L.mask_pad_logits(h @ params.unembedding(cfg), cfg)
+    logits = _unembed(params, cfg, h)
+    if mesh is not None:
+        vocab = "vocab" if S.model_sharded(_unembed_weight(params, cfg)) else None
+        logits = S.as_dtensor(logits, mesh, "batch", "seq", vocab)
     return LMOutputs(logits=logits, aux_loss=aux / cfg.num_layers)
+
+
+def _unembed_weight(params: LM, cfg: ModelConfig):
+    return params.embed if cfg.tie_embeddings else params.unembed
+
+
+def _unembed(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The padded-vocab logits of ``h`` in the activation dtype: this rank's
+    vocab columns where the weight is split over ``model`` (h's gradient
+    summed over it), all of them otherwise."""
+    w = _unembed_weight(params, cfg)
+    wl = S.local_param(w)
+    wl = wl.T if cfg.tie_embeddings else wl
+    if not S.model_sharded(w):
+        return L.mask_pad_logits(h @ wl.to(cfg.activation_dtype), cfg)
+    mesh = w.device_mesh
+    logits = S.sum_grad(h, mesh) @ wl.to(cfg.activation_dtype)
+    return L.mask_pad_logits(logits, cfg, offset=S.axis_rank(mesh, "model") * wl.shape[1])
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
@@ -336,10 +400,27 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
     is gathered. The one-hot form adds exact zeros to it, so the two are
     bit-equal, and the gather spares a (B, S, Vpad) float32 tensor (400 MB
     at cb-paper's training shape)."""
+    ll, logz = token_terms(logits, targets)
+    return -torch.mean(ll), logz
+
+
+def token_terms(logits: torch.Tensor, targets: torch.Tensor, mesh=None):
+    """(target log-likelihood, logz) per token, in float32. With ``mesh``
+    the logits are this ``model`` rank's columns of the padded vocabulary:
+    the log-sum-exp (about the max over every rank) and the target logit are
+    added over ``model``."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return -torch.mean(tgt - logz), logz
+    if mesh is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return tgt - logz, logz
+    with torch.no_grad():
+        m = S.all_reduce(logits.amax(dim=-1), mesh, "model", op=torch.distributed.ReduceOp.MAX)
+    se = S.reduce_over((logits - m[..., None]).exp().sum(dim=-1), mesh, ("model",))
+    logz = se.log() + m
+    ids, inside = _vocab_ids(targets, mesh, logits.shape[-1])
+    tgt = torch.gather(logits, -1, ids[..., None])[..., 0] * inside
+    return S.reduce_over(tgt, mesh, ("model",)) - logz, logz
 
 
 def lm_loss(
@@ -356,12 +437,21 @@ def lm_loss(
     ``tokens`` / ``targets`` (and ``patch_embeds`` for the VLM family), the
     logits in float32 and ``logz`` their logsumexp over the padded vocabulary.
     Returns ``(loss, {"xent", "aux", "zloss"})``; the cross-entropy is
-    ``cross_entropy``'s.
+    ``cross_entropy``'s. On a mesh the means are over the global batch and
+    every rank returns the same loss.
     """
     out = forward(params, cfg, batch["tokens"], specs=specs,
                   patch_embeds=batch.get("patch_embeds"), impl=impl)
-    xent, logz = cross_entropy(out.logits, batch["targets"])
-    zloss = torch.mean(torch.square(logz))
+    mesh = S.param_mesh(params.embed)
+    if mesh is None:
+        xent, logz = cross_entropy(out.logits, batch["targets"])
+        zloss = torch.mean(torch.square(logz))
+    else:
+        vp = S.model_sharded(_unembed_weight(params, cfg))
+        ll, logz = token_terms(out.logits.to_local(), S.local_batch(batch["targets"], mesh),
+                               mesh if vp else None)
+        xent = -S.global_mean(ll, mesh)
+        zloss = S.global_mean(torch.square(logz), mesh)
     loss = xent + aux_weight * out.aux_loss + z_weight * zloss
     return loss, {"xent": xent, "aux": out.aux_loss, "zloss": zloss}
 
@@ -413,6 +503,9 @@ def decode_step(
     step returns new state tensors.
     """
     check_family(cfg)
+    if S.param_mesh(params.embed) is not None:
+        raise errors.InvalidArgError(
+            "decode_step on a mesh is not ported: the reference serves one device")
     h = params.embed_tokens(tokens, cfg)        # (B, 1, d)
     if cfg.family == "ssm":
         h, ssd, conv = ssm_layers_decode(params.layers, cfg, h, state["ssd"], state["conv"])

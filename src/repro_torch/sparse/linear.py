@@ -32,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import errors, obs
 from repro_torch.core.streams import (
@@ -402,7 +403,15 @@ def cb_linear_apply(
     on CUDA tensors and its plain version on CPU tensors. ``plan`` (an
     autotune ``Plan``, duck-typed) supplies the group size; a conflicting
     explicit ``group_size`` is an error.
+
+    On a mesh ``x`` is a ``DTensor`` of batch rows (its feature dim whole)
+    and the tiles are replicated, as the reference's ``mlp_axes`` places
+    them: each rank runs the kernels on its local rows, and ``y`` comes back
+    with ``x``'s placements (``_on_mesh``).
     """
+    if isinstance(x, DTensor):
+        return _on_mesh(params, spec, x, impl=impl, group_size=group_size, plan=plan,
+                        device=device)
     if plan is not None:
         if group_size is not None and group_size != plan.group_size:
             raise errors.InvalidArgError(
@@ -421,6 +430,31 @@ def cb_linear_apply(
     X = x.reshape(-1, spec.in_features).T  # (in, N)
     Y = matmul(tiles, X)                   # (out, N)
     return Y.T.reshape(*lead, spec.out_features).to(x.dtype)
+
+
+def _on_mesh(params: dict, spec: CBLinearSpec, x: DTensor, **kw) -> DTensor:
+    """``cb_linear_apply`` of a ``DTensor`` x: the rank's rows through the
+    product with the replicated tiles, the result placed as x is.
+
+    The tiles' gradient on a rank is its rows' share: it is summed over the
+    axes x is split over (the batch's ``data`` / ``pod``), and not over those
+    it is replicated on, where every rank computed the same product (``model``)."""
+    from repro_torch.models import sharding as S
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if any(p.is_shard() and p.dim in (x.ndim - 1, -1) for p in x.placements):
+        raise errors.InvalidArgError(
+            f"x's feature dim is split ({x.placements}): a CB product takes whole rows")
+    tiles = params["tiles"]
+    if isinstance(tiles, DTensor):
+        if any(p.is_shard() for p in tiles.placements):
+            raise errors.InvalidArgError(
+                f"CB tiles are replicated (mlp_axes), not {tiles.placements}")
+        tiles = tiles.to_local()
+    split = tuple(n for n, p in zip(names, x.placements) if p.is_shard())
+    y = cb_linear_apply({"tiles": S.sum_grad(tiles, mesh, split)}, spec, x.to_local(), **kw)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False)
 
 
 def dense_equivalent(params: dict, spec: CBLinearSpec) -> torch.Tensor:

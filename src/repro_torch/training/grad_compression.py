@@ -18,14 +18,19 @@ Gradient lists are lists of tensors in one order (a model's
 ``parameters()``), as in ``training.optimizer``. The reference quantizes
 each leaf of its parameter tree with one scale, and stacks each layer
 leaf over the layers; the port holds such a leaf as one tensor per layer,
-so ``ef_quantize_stacked`` takes one scale over all of them.
+so ``ef_quantize_stacked`` takes one scale over all of them. On a mesh
+the leaf's tensors are ``DTensor``s: the scale is that of the whole leaf,
+its ``amax`` taken over every shard (a MAX over the axes the leaf is split
+on), so the codes are the one-rank run's, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import errors
+from repro_torch.models import sharding as S
 from repro_torch.models.sharding import active_mesh
 
 
@@ -58,9 +63,18 @@ def ef_quantize(grad: torch.Tensor, ef: torch.Tensor):
 
 def ef_quantize_stacked(grads: list, efs: list):
     """``ef_quantize`` of one leaf held as several tensors (a layer-stacked
-    leaf, one tensor per layer) under one scale: (qs, scale, new_efs)."""
+    leaf, one tensor per layer) under one scale: (qs, scale, new_efs), the
+    codes and EF buffers of each tensor's local shard where the tensors are
+    ``DTensor``s (their ``amax`` over the mesh axes they are split on)."""
+    split = S.sharded_axes(grads[0]) if isinstance(grads[0], DTensor) else ()
+    mesh = grads[0].device_mesh if split else None
+    grads = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+    efs = [e.to_local() if isinstance(e, DTensor) else e for e in efs]
     targets = [g.to(torch.float32) + e for g, e in zip(grads, efs)]
-    scale = _scale(torch.stack([torch.max(torch.abs(t)) for t in targets]).max())
+    amax = torch.stack([torch.max(torch.abs(t)) for t in targets]).max()
+    for a in split:
+        amax = S.all_reduce(amax, mesh, a, op=dist.ReduceOp.MAX)
+    scale = _scale(amax)
     qs = [_codes(t, scale) for t in targets]
     return qs, scale, [t - dequantize_int8(q, scale) for t, q in zip(targets, qs)]
 
@@ -121,8 +135,11 @@ def ef_compress_grads(grads, ef_buffers):
 
 
 def init_ef_buffers(params):
-    """float32 zeros shaped like each parameter (a list, or a dict for a dict)."""
+    """float32 zeros shaped (and, on a mesh, placed) like each parameter (a
+    list, or a dict for a dict)."""
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
     if isinstance(params, dict):
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()}
-    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+        return {k: zeros(p) for k, p in params.items()}
+    return [zeros(p) for p in params]

@@ -10,6 +10,9 @@ with its surface and its update math:
 
 ``params`` and ``grads`` are lists of tensors in one order (a model's
 ``parameters()``); the state holds one moment per parameter in that order.
+On a mesh they are ``DTensor``s (the moments placed like their parameters,
+``zeros_like``): every pass runs on the rank's local shards, and the
+global norm sums each tensor's squares over the mesh axes it is split on.
 
 **In place.** The reference is functional; a literal port materialises the
 new moments, the updates and the clipped grads beside the old ones, which
@@ -29,6 +32,9 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models import sharding as S
 
 # Most elements a chunk of the update touches at once: bounds the temporaries
 # (two chunk-sized float32 buffers, 1 GB here) whatever the model's size. A
@@ -55,17 +61,38 @@ def _chunks(*lists):
         yield tuple(map(list, zip(*run)))
 
 
+def local(tensors) -> list:
+    """Each tensor's local shard (a ``DTensor``'s storage, written in place by
+    the passes below; a local tensor itself)."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+
+
 @torch.no_grad()
 def apply_updates(params, updates):
     """``p + u`` into ``p``, in place; returns ``params``."""
     params = list(params)
-    torch._foreach_add_(params, list(updates))
+    torch._foreach_add_(local(params), local(updates))
     return params
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in float32 (a 0-d tensor)."""
-    return torch.stack(torch._foreach_norm([x.float() for x in tree])).square().sum().sqrt()
+    """sqrt of the sum of every element's square, in float32 (a 0-d tensor).
+    A ``DTensor``'s squares are summed over the mesh axes it is split on, so
+    every rank gets the norm of the whole tensors."""
+    tree = list(tree)
+    sq = torch.stack(torch._foreach_norm([x.float() for x in local(tree)])).square()
+    by_axes: dict = {}
+    for i, t in enumerate(tree):
+        axes = tuple(a for a in S.sharded_axes(t) if S.axis_size(t.device_mesh, a) > 1)
+        if axes:
+            by_axes.setdefault((t.device_mesh, axes), []).append(i)
+    for (mesh, axes), idx in by_axes.items():
+        at = torch.tensor(idx, device=sq.device)
+        part = sq.index_select(0, at)
+        for a in axes:
+            part = S.all_reduce(part, mesh, a)
+        sq = sq.index_copy(0, at, part)
+    return sq.sum().sqrt()
 
 
 @torch.no_grad()
@@ -75,7 +102,7 @@ def clip_by_global_norm(grads, max_norm: float):
     grads = list(grads)
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(local(grads), scale)
     return grads, norm
 
 
@@ -110,13 +137,13 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state: AdamWState, params, lr):
-        grads = list(grads)
+        grads = local(grads)
         state.count += 1
         cf = state.count.to(torch.float32)
         mu_hat_scale = 1.0 / (1 - b1**cf)
         nu_hat_scale = 1.0 / (1 - b2**cf)
         neg_lr = -torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
-        for g, m, v, p in _chunks(grads, state.mu, state.nu, list(params)):
+        for g, m, v, p in _chunks(grads, local(state.mu), local(state.nu), local(params)):
             m32 = m if moments_dtype == torch.float32 else [t.float() for t in m]
             v32 = v if moments_dtype == torch.float32 else [t.float() for t in v]
             torch._foreach_mul_(m32, b1)                  # b1 m + (1 - b1) g
@@ -159,9 +186,9 @@ def lion(b1: float = 0.9, b2: float = 0.99,
 
     @torch.no_grad()
     def update(grads, state: LionState, params, lr):
-        grads = list(grads)
+        grads = local(grads)
         neg_lr = -torch.as_tensor(lr, dtype=torch.float32, device=state.count.device)
-        for g, m, p in _chunks(grads, state.mu, list(params)):
+        for g, m, p in _chunks(grads, local(state.mu), local(params)):
             upd = torch._foreach_mul(m, b1)               # sign(b1 m + (1 - b1) g)
             torch._foreach_add_(upd, g, alpha=1 - b1)
             torch._foreach_sign_(upd)

@@ -15,6 +15,11 @@ returns that same state.
 replay), periodic async checkpoints, heartbeat + straggler bookkeeping
 from runtime/, and crash-consistent restart. It reads device values only
 on logging steps (``v.item()``, the sync the reference makes too).
+
+On a mesh (``Model(cfg, mesh=)``) every rank runs the same loop: each batch
+is placed split over ``batch -> (pod, data)`` (``sharding.place_batch``),
+the state is ``DTensor``s updated shard by shard, and the metrics are the
+same on every rank. A microbatch is rows of each rank's shard.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ import time
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models import sharding as S
 from repro_torch.models.model import Model, param_tree
 
 from . import optimizer as opt_mod
@@ -55,14 +62,13 @@ def build_train_step(
                 [p.grad for p in params.parameters()]
         loss_sum = torch.zeros((), dtype=torch.float32, device=params.embed.device)
         for i in range(microbatches):
-            mb = {k: v[i * (v.shape[0] // microbatches):(i + 1) * (v.shape[0] // microbatches)]
-                  for k, v in batch.items()}
+            mb = {k: _rows(v, i, microbatches) for k, v in batch.items()}
             loss, _ = model.loss(params, mb)
             loss.backward()                 # .grad: g1, then g1 + g2, ... in float32
             loss_sum = loss_sum + loss.detach()
         grads = [p.grad for p in params.parameters()]
         inv = 1.0 / microbatches
-        torch._foreach_mul_(grads, inv)
+        torch._foreach_mul_(opt_mod.local(grads), inv)
         return loss_sum * inv, {"xent": loss_sum * inv}, grads
 
     def train_step(state: TrainState, batch):
@@ -77,8 +83,8 @@ def build_train_step(
                     qs, s, efs = ef_quantize_stacked([grads[i] for i in idx],
                                                      [state.ef_buffers[i] for i in idx])
                     for i, q, e in zip(idx, qs, efs):
-                        grads[i].copy_(dequantize_int8(q, s))
-                        state.ef_buffers[i] = e
+                        opt_mod.local([grads[i]])[0].copy_(dequantize_int8(q, s))
+                        opt_mod.local([state.ef_buffers[i]])[0].copy_(e)
 
         grads, gnorm = opt_mod.clip_by_global_norm(grads, clip_norm)
         lr = lr_fn(state.step)
@@ -93,6 +99,16 @@ def build_train_step(
         return state, out_metrics
 
     return train_step
+
+
+def _rows(v, i: int, k: int):
+    """Microbatch ``i`` of ``k``: rows of the batch (of each rank's shard, for
+    a ``DTensor``)."""
+    if isinstance(v, DTensor):
+        return DTensor.from_local(_rows(v.to_local(), i, k), v.device_mesh, v.placements,
+                                  run_check=False)
+    n = v.shape[0] // k
+    return v[i * n:(i + 1) * n]
 
 
 def _leaf_groups(params) -> list[list[int]]:
@@ -173,6 +189,8 @@ def run_training(
         t0 = time.monotonic()
         batch = data_stream.batch(step)
         batch = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        if getattr(model, "mesh", None) is not None:
+            batch = S.place_batch(batch, model.mesh)
         state, metrics = step_fn(state, batch)
         if monitor is not None:
             monitor.heartbeat(step)

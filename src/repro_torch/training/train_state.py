@@ -14,6 +14,12 @@ names JAX flattens the reference's state with (``leaves_with_names``), so a
 checkpoint crosses between the two packages both ways. bfloat16 leaves go
 to numpy as raw two-byte values (``|V2``), as ``np.save`` stores the
 reference's bfloat16 arrays.
+
+On a mesh the state's tensors are ``DTensor``s (``TrainState.create`` of a
+sharded model places the moments and EF buffers like their parameters).
+The reference's layout is whole arrays, so ``to_numpy`` gathers each
+(every rank calls it), and ``train_state_from_numpy(model=)`` /
+``shard_state`` give each rank its part of a whole state.
 """
 from __future__ import annotations
 
@@ -23,7 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import errors
 from repro_torch.core.streams import _as_tensor, resolve_device
+from repro_torch.models import sharding as S
 from repro_torch.models.model import lm_from_tree, param_tree, tree_values
 
 from .grad_compression import init_ef_buffers
@@ -116,11 +124,12 @@ def map_leaves(fn, tree, like=None):
 # ---------------------------------------------------------------------------
 
 def to_numpy(x) -> np.ndarray:
-    """A host copy: tensors (bfloat16 as ``|V2``), stacked layers, arrays."""
+    """A host copy: tensors (bfloat16 as ``|V2``; a ``DTensor`` whole, gathered
+    from every rank), stacked layers, arrays."""
     if isinstance(x, Stacked):
         return np.stack([to_numpy(t) for t in x])
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu", copy=True)
+        t = S.full_tensor(x.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
@@ -167,10 +176,17 @@ def train_state_to_numpy(state: TrainState) -> TrainState:
     return map_leaves(to_numpy, layout(state))
 
 
-def train_state_from_numpy(tree, device=None) -> TrainState:
+def train_state_from_numpy(tree, device=None, *, model=None) -> TrainState:
     """The port's state from the reference's ``TrainState`` as numpy (this
     package's layout, or the reference's own dataclasses with numpy leaves),
-    on ``device`` (default CUDA)."""
+    on ``device`` (default CUDA). With ``model`` on a mesh (``Model(cfg,
+    mesh=)``), each rank's part of it, laid out as ``model.shard`` lays the
+    parameters (the whole state is read on the host, never on the device)."""
+    if model is not None and model.mesh is not None:
+        whole = train_state_from_numpy(tree, "cpu")
+        layouts = [(sh.mesh, sh.placements) for sh in
+                   S.model_shardings(whole.params, model.axes(), model.mesh)]
+        return shard_state(whole, layouts, resolve_device(device))
     dev = resolve_device(device)
     params = lm_from_tree(tree.params, dev)
 
@@ -185,3 +201,39 @@ def train_state_from_numpy(tree, device=None) -> TrainState:
         opt_state = LionState(mu=values(opt.mu), count=count)
     return TrainState(step=from_numpy(tree.step, dev), params=params, opt_state=opt_state,
                       ef_buffers=None if tree.ef_buffers is None else values(tree.ef_buffers))
+
+
+@torch.no_grad()
+def shard_state(state: TrainState, layouts: list, device=None) -> TrainState:
+    """``state`` (whole tensors, equal on every rank) distributed over a mesh,
+    in place: parameter i by ``layouts[i] = (mesh, placements)``, its moments
+    and EF buffer like it; each rank keeps its part, moved to ``device``
+    (default: where it is). Returns ``state``."""
+    named = list(state.params.named_parameters())
+    if len(layouts) != len(named):
+        raise errors.InvalidArgError(f"{len(layouts)} layouts for {len(named)} parameters")
+
+    def place(t, layout):
+        return S.distribute_local(t.detach(), *layout, device=device)
+
+    for (name, p), layout in zip(named, layouts):
+        S._set_param(state.params, name, torch.nn.Parameter(place(p, layout)))
+    opt = state.opt_state
+    for f in dataclasses.fields(opt):
+        v = getattr(opt, f.name)
+        if isinstance(v, list):
+            setattr(opt, f.name, [place(t, lay) for t, lay in zip(v, layouts, strict=True)])
+        elif device is not None:
+            setattr(opt, f.name, v.to(device))
+    if state.ef_buffers is not None:
+        state.ef_buffers = [place(t, lay) for t, lay in zip(state.ef_buffers, layouts,
+                                                              strict=True)]
+    if device is not None:
+        state.step = state.step.to(device)
+    return state
+
+
+def layouts_of(params) -> list:
+    """(mesh, placements) of each ``DTensor`` parameter (None for a local one)."""
+    return [(p.device_mesh, p.placements) if S.param_mesh(p) is not None else None
+            for p in params.parameters()]

@@ -315,14 +315,15 @@ def test_engine_tokens_bit_equal_over_two_runs_on_the_card():
 
 # -- training on the card (tests/test_torch_training.py) -------------------------------
 
-def _train_on(device, cfg, steps, seed=0):
-    """``run_training`` of smoke-width cb-paper on ``device`` from the weights
-    of a CPU generator seeded ``seed``; returns (state, history, spmm launches)."""
+def _train_on(device, cfg, steps, seed=0, mesh=None):
+    """``run_training`` of a smoke-width model on ``device`` (on ``mesh`` when
+    given) from the weights of a CPU generator seeded ``seed``; returns
+    (state, history, spmm launches)."""
     from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
     from repro_torch.models import Model
     from repro_torch.training import OPTIMIZERS, TrainLoopConfig, TrainState, run_training
 
-    model = Model(cfg, device)
+    model = Model(cfg, device, mesh=mesh)
     state = TrainState.create(model.init(torch.Generator().manual_seed(seed)),
                               OPTIMIZERS["adamw"]())
     stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4))
@@ -397,6 +398,39 @@ def test_distributed_spmv_on_one_nccl_rank(tmp_path, combine):
         np.testing.assert_allclose(y.cpu().numpy(), dense_oracle(rows, cols, vals, (m, n),
                                                                  x.cpu().numpy()),
                                    rtol=3e-4, atol=3e-4)
+    finally:
+        dist.destroy_process_group()
+
+
+# -- tests/test_torch_mesh.py: training on a one-rank NCCL mesh --------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["cb-paper", "mixtral-8x7b"])
+def test_training_on_a_one_rank_nccl_mesh_is_bit_equal(tmp_path, arch):
+    """Three steps of smoke-width training on a (data 1, model 1) NCCL mesh
+    (``Model(cfg, mesh=)``, DTensor parameters, the batch placed over
+    ``batch``) against the same steps without a mesh: the losses and every
+    parameter bit-equal (a one-rank collective runs nothing), and the same
+    spmm launches (9 a layer a step for cb-paper)."""
+    _need_card()
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_smoke_config(arch).scaled(remat="full")
+    local, hist, launches = _train_on("cuda", cfg, 3)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        on_mesh, mhist, mlaunches = _train_on("cuda", cfg, 3, mesh=mesh)
+        assert all(isinstance(p, DTensor) for p in on_mesh.params.parameters())
+        assert [h["loss"] for h in mhist] == [h["loss"] for h in hist]
+        assert mlaunches == launches
+        assert all(torch.equal(p.to_local(), q) for p, q in zip(on_mesh.params.parameters(),
+                                                                local.params.parameters()))
     finally:
         dist.destroy_process_group()
 

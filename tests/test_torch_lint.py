@@ -63,6 +63,7 @@ KEPT = {"CB001": "cb001", "CB002": "cb002", "CB301": "cb301",
 # the port's deliberate host reads on launch paths (each a CB211 pragma)
 DELIBERATE_READS = {
     "src/repro_torch/kernels/cb_combine.py",    # plan_combine: the host sort, at plan time
+    "src/repro_torch/models/sharding.py",       # _staged: gloo takes CUDA tensors via the host
     "src/repro_torch/serving/engine.py",        # _tick: the argmax, read back once a tick
     "src/repro_torch/solvers/_loop.py",         # while_loop: the stop flag, counted
     "src/repro_torch/sparse/linear.py",         # cb_linear_init: the host prunes the weight
@@ -97,7 +98,7 @@ def test_port_is_lint_clean():
 
 def test_deliberate_reads_are_the_pragmas():
     """Each CB211 pragma in the port silences a read that fires, and they sit
-    where the deliberate reads are (six lines in five files)."""
+    where the deliberate reads are (seven lines in six files)."""
     pragmas = {}
     for path in analysis.iter_python_files([SRC_PORT]):
         with open(path) as f:
@@ -105,7 +106,7 @@ def test_deliberate_reads_are_the_pragmas():
         if n:
             pragmas[os.path.relpath(path, REPO_ROOT).replace(os.sep, "/")] = n
     assert set(pragmas) == DELIBERATE_READS
-    assert _lint([SRC_PORT]).suppressed == sum(pragmas.values()) == 6
+    assert _lint([SRC_PORT]).suppressed == sum(pragmas.values()) == 7
 
 
 def test_checked_in_baseline_is_empty():
@@ -211,7 +212,7 @@ def test_cli_clean_exit_and_json():
 def test_cli_default_is_the_port_and_bad_flags_exit_2():
     proc = _cli()
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "0 finding(s)" in proc.stdout and "6 suppressed" in proc.stdout
+    assert "0 finding(s)" in proc.stdout and "7 suppressed" in proc.stdout
     assert _cli("--no-such-flag").returncode == 2
 
 

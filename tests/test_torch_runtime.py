@@ -345,12 +345,14 @@ def test_launch_train_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     assert out.returncode == 0, out.stderr
     assert "mesh: {'data': 1, 'model': 1}  arch: cb-paper-smoke" in out.stdout
     assert "(one rank)" in out.stdout
-    # more than one rank (torchrun's WORLD_SIZE) would mean tensor parallelism
+    # more than one rank (torchrun's WORLD_SIZE) trains on a mesh
+    # (tests/test_torch_mesh.py); a family whose constrain points are not
+    # written is refused there before the process group is joined
     from repro_torch.launch import train
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(errors.InvalidArgError, match="A.10b"):
-        train.main(["--arch", "cb-paper", "--smoke", "--device", "cpu", "--steps", "1",
+    with pytest.raises(errors.InvalidArgError, match="A.10c"):
+        train.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path / "two")])
     monkeypatch.delenv("WORLD_SIZE")
     final = out.stdout.strip().splitlines()[-1]

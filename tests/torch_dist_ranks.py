@@ -182,6 +182,167 @@ def _sharding(world: int, ckpt_dir: str, arch: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM's train step on a (data, model) mesh (tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3          # step 0 runs at lr 0 (warmup), step 1 moves the weights, and
+                         # step 2's loss is that of the moved weights
+
+
+def flat(tree, prefix="") -> dict:
+    """A nested dict of arrays as one level, keys joined by ``/``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflat(d: dict) -> dict:
+    tree: dict = {}
+    for key, v in d.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def mesh_config(case: dict):
+    """The case's ``ModelConfig``: a smoke config, or the JAX test's own."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ModelConfig
+
+    if "arch" in case:
+        return get_smoke_config(case["arch"]).scaled(dtype="float32")
+    return ModelConfig(**case["config"])
+
+
+def reference_state(case: dict, model):
+    """The reference's ``TrainState`` tree (numpy) of the case's initial weights."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_state import TrainState
+
+    params = unflat(dict(np.load(case["init"])))
+
+    def zeros():
+        return unflat({k: np.zeros_like(v) for k, v in flat(params).items()})
+
+    return TrainState(step=np.int32(0), params=params,
+                      opt_state=AdamWState(mu=zeros(), nu=zeros(), count=np.int32(0)),
+                      ef_buffers=None)
+
+
+def train_steps(model, state, batch, steps=TRAIN_STEPS, routing=False):
+    """``steps`` AdamW steps of the reference's test (peak lr 1e-3, warmup 2,
+    clip 1.0); (losses, grad norms, each step's routing counts, the state
+    after the first step in the reference's layout)."""
+    from repro_torch.models import moe
+    from repro_torch.training import OPTIMIZERS, build_train_step, warmup_cosine
+    from repro_torch.training.train_state import train_state_to_numpy
+
+    step = build_train_step(model, OPTIMIZERS["adamw"](), warmup_cosine(1e-3, 2, 100))
+    losses, norms, counts, first = [], [], [], None
+    for i in range(steps):
+        with moe.record_routing() as rec:
+            state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        counts.append([c.clone() for c in rec] if routing else None)
+        if i == 0:
+            first = train_state_to_numpy(state)
+    return losses, norms, counts, first
+
+
+def _mesh_train(world: int, shape, cases, grads_seed=None, ckpt_dir=None) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import sharding as S
+    from repro_torch.training import OPTIMIZERS, TrainState
+    from repro_torch.training.train_state import (train_state_from_numpy,
+                                                  train_state_to_numpy)
+
+    mesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+    out = {}
+    for case in cases:
+        cfg = mesh_config(case)
+        model = Model(cfg, "cpu", mesh=mesh)
+        state = train_state_from_numpy(reference_state(case, model), "cpu", model=model)
+        batch = {k: torch.from_numpy(v) for k, v in np.load(case["batch"]).items()}
+        losses, norms, counts, first = train_steps(model, state, S.place_batch(batch, mesh),
+                                                   routing=cfg.family == "moe")
+        res = dict(losses=losses, grad_norms=norms, routing=counts, first=first,
+                   placements={n: [f"Shard({p.dim})" if p.is_shard() else "Replicate()"
+                                   for p in t.placements]
+                               for n, t in state.params.named_parameters()},
+                   state=train_state_to_numpy(state))
+        if cfg.sparse_mlp:                       # each rank's copy of the replicated tiles
+            res["tiles"] = [t.to_local().clone() for n, t in state.params.named_parameters()
+                            if n.endswith(("gate", "up", "down"))]
+        if ckpt_dir is not None and case["name"] == "dense":
+            ck = Checkpointer(ckpt_dir)
+            ck.save(state, TRAIN_STEPS)
+            example = TrainState.create(model.init(torch.Generator().manual_seed(5)),
+                                        OPTIMIZERS["adamw"]())
+            back = ck.restore(example)
+            res["restored_dtensor"] = all(isinstance(p, DTensor)
+                                          for p in back.params.parameters())
+            res["restored"] = train_state_to_numpy(back)
+        out[case["name"]] = res
+    if grads_seed is not None:
+        out["grads"] = _sharded_grads(mesh, cases[0], grads_seed)
+    return out
+
+
+def random_grads(model, params, seed: int):
+    """Per-parameter float32 normals and EF buffers of the parameters' shapes."""
+    rng = np.random.default_rng(seed)
+    shapes = [tuple(p.shape) for p in params.parameters()]
+    grads = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    efs = [(rng.standard_normal(s) * 1e-2).astype(np.float32) for s in shapes]
+    return grads, efs
+
+
+def _sharded_grads(mesh, case: dict, seed: int) -> dict:
+    """The clip and the int8-EF quantization of the same gradients, sharded
+    like the parameters: the norm on every rank, and each leaf's codes and
+    scale gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import Model
+    from repro_torch.models import sharding as S
+    from repro_torch.training import grad_compression as gc
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import _leaf_groups
+
+    model = Model(mesh_config(case), "cpu", mesh=mesh)
+    params = model.init(torch.Generator().manual_seed(0))
+    grads, efs = random_grads(model, params, seed)
+
+    def placed(arrays):
+        return [S.distribute_local(torch.from_numpy(a), p.device_mesh, p.placements)
+                for a, p in zip(arrays, params.parameters())]
+
+    layouts = [(p.device_mesh, p.placements) for p in params.parameters()]
+    g, e = placed(grads), placed(efs)
+    codes = []
+    for idx in _leaf_groups(params):
+        qs, scale, _ = gc.ef_quantize_stacked([g[i] for i in idx], [e[i] for i in idx])
+        whole = [S.full_tensor(DTensor.from_local(q, *layouts[i], run_check=False))
+                 for q, i in zip(qs, idx)]
+        codes.append(dict(idx=idx, scale=scale.clone(), codes=whole))
+    clipped, norm = opt.clip_by_global_norm(placed(grads), 1.0)
+    return dict(codes=codes, norm=norm.clone(),
+                clipped=[S.full_tensor(t).clone() for t in clipped])
+
+
 def _tree_of_arrays(example):
     """A restore example from its JSON description: {name: [shape, dtype]} nested."""
     if isinstance(example, dict) and "shape" not in example:
@@ -190,7 +351,7 @@ def _tree_of_arrays(example):
 
 
 TASKS = {"spmv": _spmv, "compressed": _compressed, "pipeline": _pipeline,
-         "sharding": _sharding}
+         "sharding": _sharding, "mesh_train": _mesh_train}
 
 
 def rank_main(job_path: str, rank: int) -> None:
