@@ -183,6 +183,25 @@ the ``nvidia-smi`` line):
    state is 54 GB): loss and ``grad_norm`` within ``MESH_TOL``, the routing
    counts of every layer equal. A rank that fails or outlives ``MESH_TIMEOUT``
    fails the run.
+11c. ``mesh_families`` (``run_mesh_families``) — every family and decoding on
+   a mesh. ``mesh_serve`` 1x1: one NCCL rank, cb-paper at full depth served
+   through ``ServingEngine`` with the ``serve`` line's traffic on DTensor
+   weights under ``rules_for``'s decode rules: tokens bit-equal to the
+   ``serve`` line's, the same launches, ``tick_ms`` beside its. ``mesh_family``
+   1x1: mamba2-130m, zamba2-2.7b and whisper-small at full config, 2 AdamW
+   steps of the ``train`` traffic (whisper with stub frames) on one NCCL rank:
+   losses and every parameter bit-equal to a local run in this process,
+   ``step_ms`` and ``peak_mem_gb`` beside its. Then two gloo ranks spawned on
+   ``cuda:0`` (1x2: two ranks sharing the card, not two cards), each family at
+   2 layers: 2 steps, loss and ``grad_norm`` within ``MESH_TOL`` of one rank,
+   the state's bytes a rank; and ``mesh_serve`` 1x2, cb-paper, mamba2 and
+   whisper at 2 layers and float32 activations, ``MESH_SERVE_STEPS``
+   teacher-forced ``decode_step``s with the KV cache's sequence split over
+   the two ranks (mamba2's conv state over them, whisper's cross k / v by
+   batch): logits within ``MESH_SERVE_TOL`` of one rank's, the same tokens,
+   each rank's spmm and combine launches held to the code's count, and rank
+   0's spmm and combine against their plain versions at its shapes (N = 4
+   rows; rows of the ``kernels`` line).
 12. ``dryrun`` — the one-rank dry run (``repro_torch.launch.dryrun``: the
    step on the meta device, FLOPs from ``FlopCounterMode``, the byte floor
    (each step input read once, each output written once) and the unfused op
@@ -199,10 +218,19 @@ the ``nvidia-smi`` line):
    writes (outside 1 to 1 + ``DRYRUN_FLOOR_SLACK`` / layers fails: one layer
    uncounted falls below), and all three counts beside the 2- and 4-layer
    probes extrapolated (apart by more than ``DRYRUN_PROBE_TOL`` fails: some
-   layers counted differently from others). ``dryrun_sweep``:
-   every (arch x shape) cell of the ten archs and cb-paper through ``run_cell``,
-   in ``DRYRUN_WORKERS`` processes: ok / skipped / FAILED counts (any FAILED
-   fails, and so does a split other than ``supports_shape``'s) and seconds.
+   layers counted differently from others). ``dryrun_mesh``: cb-paper's
+   ``train_4k`` and ``decode_32k`` and mixtral's ``train_4k`` (TP-MoE) on the
+   16x16 production mesh (a spawned process each, torch.distributed's
+   ``"fake"`` backend, ``rules_for``), beside the same cells at one rank:
+   per-card FLOPs, byte floor, peak, collectives by kind and axis,
+   ``collective_s`` at the NIC's rate, ``bottleneck``, whether the card's
+   80 GB hold it; the per-card parameter and optimizer (or decode state) bytes
+   must equal the local shard sizes of the sharding tree; 256 x the per-card
+   FLOPs over the one-rank count, with the replicated compute listed.
+   ``dryrun_sweep``: every (arch x shape) cell of the ten archs and cb-paper
+   on the 16x16 mesh, in ``DRYRUN_WORKERS`` spawned processes:
+   ok / skipped / FAILED counts (any FAILED fails, and so does a split other
+   than ``supports_shape``'s) and seconds.
 13. ``families`` — the MoE, SSM, hybrid and encoder-decoder families served
    through ``ServingEngine`` (a ``family`` line each; ``PERF.md`` section 4).
 14. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
@@ -284,9 +312,12 @@ from repro_torch.configs import (  # noqa: E402
 )
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, rules_for  # noqa: E402
+from repro_torch.launch.train import FramesStream  # noqa: E402
 from repro_torch.models import Model, axis_rules, encdec, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import sharding as model_sharding  # noqa: E402
+from repro_torch.models.sharding import full_tensor  # noqa: E402
 from repro_torch.serving import Request, ServingEngine, greedy_decode  # noqa: E402
 from repro_torch.solvers import _loop as solver_loop  # noqa: E402
 from repro_torch.sparse import linear as sparse_linear  # noqa: E402
@@ -1737,7 +1768,7 @@ def run_serve(seed, per_kernel, launches):
          nvidia_smi=smi(), phase_s=time.perf_counter() - t_phase)
     del params, model, state
     return dict(tick_bytes=tick_bytes, kv_cache_bytes=kv_bytes, tick_ms=tick_med,
-                device_tick_ms=device_tick_ms)
+                device_tick_ms=device_tick_ms, generated=run1["generated"], launches=counted)
 
 
 # ---------------------------------------------------------------------------
@@ -2114,8 +2145,11 @@ def mesh_train(model, stream, steps: int, seed: int, monitor=None):
 
 
 def train_stream(cfg):
-    return SyntheticTokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
-                                           global_batch=TRAIN["global_batch"]))
+    """The train line's token stream (with ``launch/train``'s stub frames for
+    the encoder-decoder family)."""
+    stream = SyntheticTokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                             global_batch=TRAIN["global_batch"]))
+    return FramesStream(stream, cfg) if cfg.family == "encdec" else stream
 
 
 def mesh_rank(rank: int, job: dict) -> None:
@@ -2160,11 +2194,14 @@ def mesh_rank(rank: int, job: dict) -> None:
     torch.save(out, pathlib.Path(job["out"]) / f"mesh-{job['world']}-rank{rank}.pt")
 
 
-def spawn_ranks(job: dict, tmp: pathlib.Path) -> list[dict]:
-    """``job["world"]`` mesh ranks spawned at once; every one must end within
-    ``MESH_TIMEOUT`` with exit code 0, or the phase fails."""
+def spawn_ranks(job: dict, tmp: pathlib.Path, target=None, stem=None) -> list[dict]:
+    """``job["world"]`` mesh ranks spawned at once, each running ``target``
+    (``mesh_rank`` by default) and saving ``tmp/{stem}-rank{r}.pt``; every one
+    must end within ``MESH_TIMEOUT`` with exit code 0, or the phase fails."""
+    target = mesh_rank if target is None else target
+    stem = f"mesh-{job['world']}" if stem is None else stem
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(r, job)) for r in range(job["world"])]
+    procs = [ctx.Process(target=target, args=(r, job)) for r in range(job["world"])]
     for p in procs:
         p.start()
     deadline = time.monotonic() + MESH_TIMEOUT
@@ -2180,7 +2217,7 @@ def spawn_ranks(job: dict, tmp: pathlib.Path) -> list[dict]:
     bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
     if bad:
         fail(f"{job['tag']}: ranks exited with codes {bad}")
-    return [torch.load(tmp / f"mesh-{job['world']}-rank{r}.pt", weights_only=False)
+    return [torch.load(tmp / f"{stem}-rank{r}.pt", weights_only=False)
             for r in range(job["world"])]
 
 
@@ -2316,6 +2353,299 @@ def run_mesh(seed, train_line, per_kernel, launches, mesh_launches) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the mesh_family and mesh_serve lines: every family trained, and cb-paper,
+# mamba2 and whisper decoded, on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("mamba2-130m", "zamba2-2.7b", "whisper-small")
+MESH_DECODE = ("cb-paper", "mamba2-130m", "whisper-small")
+MESH_SERVE_STEPS = 8           # teacher-forced decode steps of the 1x2 runs
+MESH_SERVE_TOL = 1e-4          # their logits against one rank, relative to the real vocab's
+                               # largest logit: float32 activations, the softmax combined over
+                               # the cache's two halves and the row-parallel sums added in
+                               # another order
+MESH_SERVE_REDUCED = ("activations bfloat16 -> float32: the top two of 50k logits of random "
+                      "weights lie within a bfloat16 rounding of each other often enough "
+                      "that another summation order flips a token (seen on whisper)")
+
+
+def mesh2_config(arch: str, train: bool):
+    """The 1x2 runs' config: full width, ``two_layers``' depth; training in the
+    config's own activations (bfloat16), decoding in float32
+    (``MESH_SERVE_REDUCED``)."""
+    cfg = two_layers(get_config(arch))
+    return cfg.scaled(dtype=get_config(arch).dtype) if train else cfg
+
+
+def decode_rules(cfg, mesh):
+    """``rules_for``'s rules of the serve line's decode shape on ``mesh``."""
+    return rules_for(cfg, ShapeConfig("serve_line", "decode", SERVE["max_len"], SERVE["slots"]),
+                     mesh)
+
+
+def decode_launches_per_step(model) -> dict:
+    """Kernel launches one decode step must make, from the code: every sparse
+    product (gate, up, down in each layer) runs the spmm kernel once and the
+    combine once per pass of its plan (``ops.spmm_routed``)."""
+    if not model.cfg.sparse_mlp:
+        return {"spmm": 0, "combine": 0}
+    spmm = combine = 0
+    for spec in model.specs.values():
+        spmm += 1
+        combine += len(sparse_linear._Matmul(spec, "cuda", None, DEV).fwd.route.combine.passes)
+    return {"spmm": model.cfg.num_layers * spmm, "combine": model.cfg.num_layers * combine}
+
+
+def state_bytes(state) -> int:
+    """This rank's bytes of a train state's parameters and moments."""
+    ts = [*state.params.parameters(), *state.opt_state.mu, *state.opt_state.nu]
+    return sum(t.to_local().nbytes if isinstance(t, DTensor) else t.nbytes for t in ts)
+
+
+def mesh_decode(cfg, seed: int, mesh=None, rows=None):
+    """``MESH_SERVE_STEPS`` teacher-forced ``decode_step``s of seeded weights
+    and tokens (whisper over ``precompute_cross`` of seeded frames), on
+    ``mesh`` under its decode rules or on one rank; the launch counters zeroed
+    just before the steps and read just after. ``rows`` (a kernels-row list)
+    gets the spmm and combine at this rank's shapes. Returns (logits (B, T,
+    Vpad) float32, launches, expected launches)."""
+    B, T = SERVE["slots"], MESH_SERVE_STEPS
+    model = Model(cfg, mesh=mesh)
+    with axis_rules(mesh, None if mesh is None else decode_rules(cfg, mesh)):
+        params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+        state = model.init_decode_state(B, SERVE["max_len"])
+        if cfg.family == "encdec":
+            state["cross"] = encdec.precompute_cross(params, cfg, family_frames(cfg, B, seed + 2))
+        rng = np.random.default_rng(seed + 45)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)).to(DEV)
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        out = []
+        for t in range(T):
+            lg, state = model.decode_step(params, state, toks[:, t:t + 1],
+                                          torch.full((B,), t, dtype=torch.int32, device=DEV))
+            out.append(full_tensor(lg).float())
+        torch.cuda.synchronize()
+        counted = {k: w.launches for k, w in WRAPPERS.items()}
+    expected = decode_launches_per_step(model)
+    if rows is not None and cfg.sparse_mlp:       # the kernels at this rank's decode shapes
+        lay = params.layers[0].ffn
+        per_step = {k: c / T for k, c in counted.items()}
+        gen = torch.Generator(device=DEV).manual_seed(seed + 9)
+        for name in ("gate", "down"):
+            spec = model.specs[name]
+            route = sparse_linear._Matmul(spec, "cuda", None, DEV).fwd.route
+            X = torch.randn((spec.in_features, B), generator=gen, device=DEV) \
+                .to(cfg.activation_dtype)
+            tiles = lay[name].to_local() if isinstance(lay[name], DTensor) else lay[name]
+            spmm_rows(f"mesh_serve 1x2 rank 0 {cfg.name} {name}", "mesh_serve 1x2 step",
+                      tiles.detach(), route.bcol, ops.x_blocks(X, spec.nb, spec.block_size),
+                      route, spec.out_features, per_step, rows)
+    return torch.stack(out, dim=1), counted, expected
+
+
+def mesh2_rank(rank: int, job: dict) -> None:
+    """One of the two gloo ranks (sharing cuda:0) of the 1x2 mesh_family and
+    mesh_serve runs: each family's training at 2 layers, then each decode
+    case; saves what it measured."""
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        out = {"train": {}, "decode": {}, "rows": {k: [] for k in WRAPPERS}}
+        for arch in MESH_FAMILIES:
+            cfg = mesh2_config(arch, train=True)
+            model = Model(cfg, mesh=mesh)
+            hist, counted, peak, state, _, _ = mesh_train(model, train_stream(cfg), MESH_STEPS,
+                                                          job["seed"])
+            out["train"][arch] = dict(losses=[h["loss"] for h in hist],
+                                      grad_norms=[h["grad_norm"] for h in hist],
+                                      step_ms=[h["step_time_s"] * 1e3 for h in hist],
+                                      peak_mem_gb=peak, state_bytes=state_bytes(state))
+            del state, model
+            torch.cuda.empty_cache()
+        for arch in MESH_DECODE:
+            cfg = mesh2_config(arch, train=False)
+            logits, counted, expected = mesh_decode(cfg, job["seed"], mesh,
+                                                    out["rows"] if rank == 0 else None)
+            out["decode"][arch] = dict(logits=logits.cpu(), launches=counted, expected=expected)
+            torch.cuda.empty_cache()
+        out["worst_err"], out["worst_rel"] = dict(worst_err), dict(worst_rel)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, pathlib.Path(job["out"]) / f"mesh2-rank{rank}.pt")
+
+
+def one_nccl_rank(fn):
+    """``fn(mesh)`` on a 1x1 mesh of one NCCL rank in this process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            return fn(make_mesh((1, 1), ("data", "model")))
+        finally:
+            dist.destroy_process_group()
+
+
+def run_mesh_families(seed, serve_line, per_kernel, launches, mesh_launches) -> None:
+    """``mesh_serve`` and ``mesh_family``: cb-paper served through
+    ``ServingEngine`` on a 1x1 NCCL mesh, tokens bit-equal to the ``serve``
+    line's; mamba2, zamba2 and whisper trained 2 steps on a 1x1 NCCL mesh, bit
+    for bit a local run's; then two gloo ranks sharing the card (1x2) at 2
+    layers, the families' training and the decode of cb-paper, mamba2 and
+    whisper (the KV cache's sequence split in two) against one rank."""
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE["arch"])
+
+    # -- mesh_serve 1x1: the serve line's traffic through decode_step on DTensor weights --
+    def serve_on(mesh):
+        model = Model(cfg, mesh=mesh)
+        with axis_rules(mesh, decode_rules(cfg, mesh)):
+            params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+            dtensor = all(isinstance(p, DTensor) for p in params.parameters())
+            for w in WRAPPERS.values():
+                w.launches = 0
+            run = serve_once(model, params)
+            counted = {k: w.launches for k, w in WRAPPERS.items()}
+        del params, model
+        torch.cuda.empty_cache()
+        return run, counted, dtensor
+
+    run, counted, dtensor = one_nccl_rank(serve_on)
+    same = run["generated"] == serve_line["generated"]
+    if not same or counted != serve_line["launches"] or not dtensor:
+        fail(f"mesh_serve 1x1: tokens bit-equal {same}, launches {counted} against the serve "
+             f"line's {serve_line['launches']}, DTensor weights {dtensor}")
+    for k, c in counted.items():
+        launches[k] += c
+        if c:
+            mesh_launches.setdefault(k, {})["mesh_serve 1x1"] = c
+    emit("mesh_serve", mesh="1x1", backend="nccl", ranks=1, config=cfg.name,
+         layers=cfg.num_layers, reduced=None, traffic=SERVE, tokens_bit_equal=True,
+         ticks=run["engine"].ticks, tick_ms=statistics.median(run["tick_ms"]),
+         serve_tick_ms=serve_line["tick_ms"], launches=counted, dtensor_params=dtensor)
+    del run
+
+    # -- mesh_family 1x1: two steps of the train traffic, bit for bit the local run's ----
+    for arch in MESH_FAMILIES:
+        fcfg = get_config(arch)
+        stream = train_stream(fcfg)
+        hist, _, peak_l, state, _, _ = mesh_train(Model(fcfg), stream, MESH_STEPS, seed)
+        want = [p.detach().cpu() for p in state.params.parameters()]
+        local_ms = [h["step_time_s"] * 1e3 for h in hist]
+        local_losses = [h["loss"] for h in hist]
+        del state
+        torch.cuda.empty_cache()
+
+        def train_on(mesh):
+            h, _, peak, st, _, _ = mesh_train(Model(fcfg, mesh=mesh), stream, MESH_STEPS, seed)
+            eq = [bool(torch.equal(p.to_local().detach().cpu(), w))
+                  for p, w in zip(st.params.parameters(), want, strict=True)]
+            nbytes = state_bytes(st)
+            del st
+            torch.cuda.empty_cache()
+            return h, peak, eq, nbytes
+
+        mhist, peak, eq, nbytes = one_nccl_rank(train_on)
+        losses = [h["loss"] for h in mhist]
+        if losses != local_losses or not all(eq):
+            fail(f"mesh_family 1x1 {arch}: losses {losses} against the local run's "
+                 f"{local_losses}, {eq.count(False)} of {len(eq)} parameters differ")
+        emit("mesh_family", mesh="1x1", backend="nccl", ranks=1, arch=arch, config=fcfg.name,
+             layers=fcfg.num_layers, reduced=None,
+             traffic={k: v for k, v in TRAIN.items() if k != "arch"} | {"steps": MESH_STEPS},
+             losses=losses, local_losses=local_losses, losses_bit_equal=True,
+             params_bit_equal=True, params=len(eq),
+             step_ms=mhist[-1]["step_time_s"] * 1e3,
+             step_runs_ms=[h["step_time_s"] * 1e3 for h in mhist], local_step_ms=local_ms,
+             peak_mem_gb=peak, local_peak_mem_gb=peak_l, state_gb=nbytes / 1e9)
+        del want
+        torch.cuda.empty_cache()
+
+    # -- 1x2: two gloo ranks sharing the card, against one rank -------------------------
+    one_train, one_decode = {}, {}
+    for arch in MESH_FAMILIES:
+        fcfg = mesh2_config(arch, train=True)
+        hist, _, peak, state, _, _ = mesh_train(Model(fcfg), train_stream(fcfg), MESH_STEPS,
+                                                seed + 11)
+        one_train[arch] = dict(losses=[h["loss"] for h in hist],
+                               grad_norms=[h["grad_norm"] for h in hist], peak_mem_gb=peak,
+                               state_bytes=state_bytes(state))
+        del state
+        torch.cuda.empty_cache()
+    for arch in MESH_DECODE:
+        logits, counted, expected = mesh_decode(mesh2_config(arch, train=False), seed + 11)
+        one_decode[arch] = dict(logits=logits.cpu(), launches=counted)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        res = spawn_ranks(dict(tag="mesh 1x2", world=2, seed=seed + 11, store=str(tmp / "store"),
+                               out=str(tmp)), tmp, mesh2_rank, "mesh2")
+        group_s = time.perf_counter() - t0
+    for r in res:
+        for k in WRAPPERS:
+            worst_err[k] = max(worst_err[k], r["worst_err"][k])
+            worst_rel[k] = max(worst_rel[k], r["worst_rel"][k])
+            per_kernel[k] += r["rows"][k]
+    for arch in MESH_FAMILIES:
+        one = one_train[arch]
+        errs = dict(loss=max(rel(a, b) for r in res
+                             for a, b in zip(r["train"][arch]["losses"], one["losses"])),
+                    grad_norm=max(rel(a, b) for r in res
+                                  for a, b in zip(r["train"][arch]["grad_norms"],
+                                                  one["grad_norms"])))
+        if max(errs.values()) > MESH_TOL or res[1]["train"][arch]["losses"] != \
+                res[0]["train"][arch]["losses"]:
+            fail(f"mesh_family 1x2 {arch}: against one rank {errs} > {MESH_TOL}, or the ranks' "
+                 "losses differ")
+        emit("mesh_family", mesh="1x2", backend="gloo", ranks=2, one_card=True, arch=arch,
+             layers=2, reduced=[f"depth {get_config(arch).num_layers} -> 2"],
+             losses=res[0]["train"][arch]["losses"], grad_norms=res[0]["train"][arch][
+                 "grad_norms"], one_rank_losses=one["losses"],
+             one_rank_grad_norms=one["grad_norms"], rel_err=errs, tolerance=MESH_TOL,
+             state_bytes_per_rank=[r["train"][arch]["state_bytes"] for r in res],
+             one_rank_state_bytes=one["state_bytes"],
+             step_ms=max(r["train"][arch]["step_ms"][-1] for r in res),
+             peak_mem_gb=[r["train"][arch]["peak_mem_gb"] for r in res],
+             rank_group_s=group_s)
+    for arch in MESH_DECODE:
+        V = get_config(arch).vocab_size                 # the padding columns hold -1e9
+        want = one_decode[arch]["logits"][..., :V]
+        scale = max(1.0, want.abs().max().item())
+        err = max((r["decode"][arch]["logits"][..., :V] - want).abs().max().item() for r in res)
+        tokens_equal = all(torch.equal(r["decode"][arch]["logits"].argmax(-1), want.argmax(-1))
+                           for r in res)
+        for rank, r in enumerate(res):
+            d = r["decode"][arch]
+            want_l = {k: MESH_SERVE_STEPS * v for k, v in d["expected"].items()}
+            if {k: d["launches"][k] for k in want_l} != want_l:
+                fail(f"mesh_serve 1x2 {arch}: rank {rank} launched {d['launches']}, the code "
+                     f"says {want_l}")
+        if err > MESH_SERVE_TOL * scale or not tokens_equal:
+            fail(f"mesh_serve 1x2 {arch}: logits {err:.3e} from one rank's (> {MESH_SERVE_TOL}"
+                 f" x {scale:.3e}), tokens equal {tokens_equal}")
+        for k in WRAPPERS:
+            n = sum(r["decode"][arch]["launches"][k] for r in res)
+            launches[k] += n
+            if n:
+                mesh_launches.setdefault(k, {})[f"mesh_serve 1x2 {arch} (2 ranks)"] = n
+        emit("mesh_serve", mesh="1x2", backend="gloo", ranks=2, one_card=True, arch=arch,
+             layers=2, reduced=[f"depth {get_config(arch).num_layers} -> 2",
+                                MESH_SERVE_REDUCED],
+             kv_seq_split=2, steps=MESH_SERVE_STEPS, slots=SERVE["slots"],
+             max_len=SERVE["max_len"], max_abs_err=err, scale=scale, tolerance=MESH_SERVE_TOL,
+             tokens_equal=True, launches_per_rank=[r["decode"][arch]["launches"] for r in res],
+             expected_launches_per_step=res[0]["decode"][arch]["expected"],
+             one_rank_launches=one_decode[arch]["launches"])
+    emit("mesh_families_phase", seconds=time.perf_counter() - t_phase, rank_group_s=group_s)
+
+
+# ---------------------------------------------------------------------------
 # the dryrun phase: the one-rank dry run's counts against what the card measured
 # ---------------------------------------------------------------------------
 
@@ -2331,13 +2661,114 @@ DRYRUN_PROBE_TOL = 1e-9            # full-depth counts / the probes' extrapolati
 DRYRUN_WORKERS = 8                 # sweep processes (host only: the cells run on meta)
 
 
-def dryrun_cell(job: tuple[str, str]) -> dict:
-    """One sweep cell in a worker process: its status and host seconds."""
-    arch, shape = job
+DRYRUN_MESH = "16x16"              # the production mesh of the sweep and the dryrun_mesh lines
+DRYRUN_MESH_CELLS = (("cb-paper", "train_4k"), ("cb-paper", "decode_32k"),
+                     ("mixtral-8x7b", "train_4k"))
+
+
+def dryrun_cell(job: tuple[str, str, str]) -> dict:
+    """One cell on the named mesh ("1": one rank) in a worker process of its
+    own (the fake process group is the process's), with its host seconds."""
+    arch, shape, mesh = job
     t0 = time.perf_counter()
-    cell = dryrun.run_cell(arch, shape)
-    return dict(arch=arch, shape=shape, status=cell["status"], error=cell.get("error"),
-                seconds=time.perf_counter() - t0)
+    cell = dryrun.run_cell(arch, shape) if mesh == "1" else \
+        dryrun._sweep_cell(arch, shape, mesh)
+    cell["host_s"] = time.perf_counter() - t0
+    return cell
+
+
+def dryrun_cells(jobs: list) -> dict:
+    """``jobs`` (arch, shape, mesh) in ``DRYRUN_WORKERS`` spawned processes, the
+    costliest first: {job: cell}. A worker counts cell after cell (each mesh
+    cell joins and leaves its own fake process group: ``dryrun.mesh_cell``;
+    a fresh process a cell spends more in imports than in counting)."""
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    jobs = sorted(jobs, key=lambda j: order[SHAPES[j[1]].kind])
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(DRYRUN_WORKERS, len(jobs))) as pool:
+        return dict(zip(jobs, pool.map(dryrun_cell, jobs, chunksize=1)))
+
+
+def shard_state_bytes(cfg, shape) -> dict:
+    """Per-device bytes of the cell's state on ``DRYRUN_MESH`` from its sharding
+    tree alone (``sanitize_shardings(logical_to_sharding(axes, mesh, rules_for))``
+    over ``abstract_init``'s shapes and the decode state's): each leaf's local
+    shard size, every split dim divided by its axes' width."""
+    dims, names = dryrun.mesh_dims(DRYRUN_MESH)
+    mesh = type("Mesh", (), {"mesh_dim_names": names, "shape": dims})()
+    rules = rules_for(cfg, shape, mesh)
+    width = dict(zip(names, dims))
+    model = Model(cfg, "meta")
+
+    def local(tree, axes, itemsize=None):
+        total = []
+
+        def leaf(t, sh):
+            shp = model_sharding._shape(t)
+            n = 1
+            for d, ax in zip(shp, tuple(sh.spec) + (None,) * len(shp)):
+                w = math.prod(width[a] for a in ((ax,) if isinstance(ax, str) else ax or ()))
+                n *= d // w
+            first = t
+            while isinstance(first, list):
+                first = first[0]
+            total.append(n * (itemsize or first.element_size()))
+            return sh
+
+        model_sharding._map_shardings(leaf, tree, model_sharding.sanitize_shardings(
+            tree, model_sharding.logical_to_sharding(axes, mesh, rules), mesh))
+        return sum(total)
+
+    tree, axes = model.abstract_init()
+    if shape.kind == "train":
+        moments = 2 if cfg.param_count() > 100e9 else 4
+        return {"params": local(tree, axes), "mu": local(tree, axes, moments),
+                "nu": local(tree, axes, moments)}
+    out = {"params": local(tree, axes, 2)}                 # served in bfloat16
+    if shape.kind == "decode":
+        st = model.init_decode_state(shape.global_batch, shape.seq_len)
+        out["decode_state"] = local(st, model.decode_state_axes())
+    return out
+
+
+def dryrun_mesh_jobs() -> list:
+    return [(a, s, m) for m in (DRYRUN_MESH, "1") for a, s in DRYRUN_MESH_CELLS]
+
+
+def run_dryrun_mesh(cells: dict | None = None) -> None:
+    """``dryrun_mesh``: cb-paper's train_4k and decode_32k and mixtral's
+    train_4k (TP-MoE) at ``DRYRUN_MESH`` beside the same cells at one rank
+    (``cells`` holds them, from the sweep's processes; counted here if not)."""
+    t0 = time.perf_counter()
+    if cells is None:
+        cells = dryrun_cells(dryrun_mesh_jobs())
+    chips = math.prod(dryrun.mesh_dims(DRYRUN_MESH)[0])
+    for arch, shape in DRYRUN_MESH_CELLS:
+        cell, one = cells[(arch, shape, DRYRUN_MESH)], cells[(arch, shape, "1")]
+        if cell["status"] != "ok" or one["status"] != "ok":
+            fail(f"dryrun_mesh {arch} {shape}: {cell['status']} {cell.get('error')} / one rank "
+                 f"{one['status']} {one.get('error')}")
+        cfg = get_config(arch)
+        want = shard_state_bytes(cfg, SHAPES[shape])
+        if cell["state_bytes_per_device"] != want:
+            fail(f"dryrun_mesh {arch} {shape}: state bytes per device "
+                 f"{cell['state_bytes_per_device']} against the sharding tree's {want}")
+        r = cell["roofline"]
+        emit("dryrun_mesh", arch=arch, shape=shape, mesh=DRYRUN_MESH, chips=chips,
+             rules=cell["rules"], flops_per_device=cell["flops_per_device"],
+             bytes_per_device=cell["bytes_per_device"],
+             peak_est_gb=cell["memory"]["peak_memory_in_bytes"] / 1e9,
+             fits_80gb=cell["memory"]["peak_memory_in_bytes"] <= 80e9,
+             collectives=cell["collectives"], collectives_by_axis=cell["collectives_by_axis"],
+             links=cell["links"], compute_s=r["compute_s"], memory_s=r["memory_s"],
+             collective_s=r["collective_s"], bottleneck=r["bottleneck"],
+             state_bytes_per_device=cell["state_bytes_per_device"],
+             state_bytes_from_sharding_tree=want, state_bytes_equal=True,
+             one_rank_flops=one["flops_per_device"],
+             flops_ratio=chips * cell["flops_per_device"] / one["flops_per_device"],
+             replicated_compute=cell["replicated"], host_s=cell["host_s"],
+             one_rank_host_s=one["host_s"])
+    emit("dryrun_mesh_phase", seconds=time.perf_counter() - t0, cells=len(dryrun_mesh_jobs()))
 
 
 def run_dryrun(train_line: dict, serve_line: dict) -> None:
@@ -2384,7 +2815,8 @@ def run_dryrun(train_line: dict, serve_line: dict) -> None:
     # rows, the KV cache read) plus the new cache the step writes (decode_step copies it)
     floor_expected = serve_line["tick_bytes"] + serve_line["kv_cache_bytes"]
     floor_ratio = counts["bytes_floor"] / floor_expected
-    probe_err = {k: abs(probed[k] / counts[k] - 1) for k in dryrun.COUNTS}
+    # (the collective bytes are 0 at one rank, in the probes too)
+    probe_err = {k: abs(probed[k] - counts[k]) / (abs(counts[k]) or 1.0) for k in dryrun.COUNTS}
     emit("dryrun serve", config=cfg.name, shape=dataclasses.asdict(shape),
          bytes_floor=counts["bytes_floor"], tick_bytes=serve_line["tick_bytes"],
          kv_cache_bytes=serve_line["kv_cache_bytes"], floor_expected=floor_expected,
@@ -2408,21 +2840,22 @@ def run_dryrun(train_line: dict, serve_line: dict) -> None:
     if moved:
         fail(f"dryrun: the meta steps launched kernels: {moved}")
 
-    # -- the sweep: every cell of the ten archs and cb-paper at one rank ----------------
+    # -- the sweep: every cell of the ten archs and cb-paper on the production mesh, and
+    #    dryrun_mesh's one-rank cells, in the same processes ------------------------------
     t0 = time.perf_counter()
-    order = {"train": 0, "prefill": 1, "decode": 2}       # the costliest cells first
-    jobs = sorted(((a, s) for a in (*ARCH_IDS, "cb-paper") for s in SHAPES),
-                  key=lambda j: order[SHAPES[j[1]].kind])
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(DRYRUN_WORKERS, len(jobs))) as pool:
-        cells = list(pool.imap_unordered(dryrun_cell, jobs))
+    jobs = [(a, s, DRYRUN_MESH) for a in (*ARCH_IDS, "cb-paper") for s in SHAPES]
+    every = dryrun_cells(jobs + [j for j in dryrun_mesh_jobs() if j[2] == "1"])
+    cells = [every[j] for j in jobs]
+    sweep_s = time.perf_counter() - t0
+    run_dryrun_mesh(every)
     count = collections.Counter(c["status"] for c in cells)
-    expected_ok = sum(supports_shape(get_config(a), SHAPES[s])[0] for a, s in jobs)
+    expected_ok = sum(supports_shape(get_config(a), SHAPES[s])[0] for a, s, _ in jobs)
     failed = [c for c in cells if c["status"] == "FAILED"]
-    emit("dryrun_sweep", cells=len(cells), ok=count["ok"], skipped=count["skipped"],
+    emit("dryrun_sweep", mesh=DRYRUN_MESH, cells=len(cells), ok=count["ok"],
+         skipped=count["skipped"],
          failed=count["FAILED"], expected_ok=expected_ok, workers=DRYRUN_WORKERS,
-         seconds=time.perf_counter() - t0,
-         slowest=sorted(((c["seconds"], c["arch"], c["shape"]) for c in cells),
+         seconds=sweep_s,
+         slowest=sorted(((c["host_s"], c["arch"], c["shape"]) for c in cells),
                         reverse=True)[:5],
          failures=[(c["arch"], c["shape"], c["error"]) for c in failed],
          phase_s=time.perf_counter() - t_phase)
@@ -3256,6 +3689,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh_launches = {}                          # kernel -> {mesh run: launches, all ranks}
     run_mesh(args.seed, train_line, per_kernel, launches, mesh_launches)
+    torch.cuda.empty_cache()
+    run_mesh_families(args.seed, serve_line, per_kernel, launches, mesh_launches)
     torch.cuda.empty_cache()
     run_dryrun(train_line, serve_line)
     run_families(args.seed)

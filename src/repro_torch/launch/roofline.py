@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.roofline [--dir experiments/dryrun_torch]
 
 The reference's report (``src/repro/launch/roofline.py``) unchanged, over the
-port's cells (``launch.dryrun``: one rank, mesh ``"1"``, the H100's rates);
-the cell JSONs share the reference's layout, so either report reads either
+port's cells (``launch.dryrun``: the production mesh ``16x16`` by default,
+``--mesh 2x16x16`` or ``--mesh 1`` for the others; the H100's rates); the
+cell JSONs share the reference's layout, so either report reads either
 package's cells.
 """
 from __future__ import annotations
@@ -80,7 +81,7 @@ def summarize(cells: list[dict]) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="experiments/dryrun_torch")
-    ap.add_argument("--mesh", default="1")
+    ap.add_argument("--mesh", default="16x16")
     args = ap.parse_args(argv)
     cells = load_cells(args.dir)
     print(fmt_table(cells, args.mesh))

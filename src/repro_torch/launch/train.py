@@ -37,7 +37,6 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.streams import resolve_device
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.models import Model, axis_rules
-from repro_torch.models.transformer import check_mesh_family
 from repro_torch.runtime import HeartbeatMonitor, plan_mesh
 from repro_torch.training import OPTIMIZERS, TrainLoopConfig, TrainState, run_training
 
@@ -86,7 +85,6 @@ def main(argv=None) -> None:
     plan = plan_mesh(ranks, prefer_model=min(16, ranks), global_batch=args.global_batch)
     mesh = None
     if ranks > 1:
-        check_mesh_family(cfg)
         mesh = _join(plan, ranks, args.device, args.init_method)
     try:
         _train(args, cfg, plan, mesh)

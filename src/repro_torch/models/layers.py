@@ -64,6 +64,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
 
 
+def rmsnorm_split(x: torch.Tensor, w: torch.Tensor, mesh, width: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` of a dim split over ``mesh``'s ``model`` axis: x and w are
+    this rank's parts of it, ``width`` its whole size. The sum of squares is
+    added over ``model``, and so is its gradient (each rank's part of the
+    output depends on it)."""
+    xf = x.float()
+    ss = S.reduce_over(S.sum_grad(xf.square().sum(dim=-1, keepdim=True), mesh), mesh,
+                       ("model",))
+    return (xf * torch.rsqrt(ss / width + eps) * w).to(x.dtype)
+
+
 def embed_init(generator: torch.Generator, vocab: int, d: int, device=None) -> torch.Tensor:
     return _normal(generator, (vocab, d), 0.02, device)
 
@@ -215,8 +227,9 @@ def attention_apply(
     *,
     positions: torch.Tensor,          # (S,) or (B, S)
     causal: bool = True,
-    cache: dict | None = None,        # decode: {"k", "v", "pos"}
+    cache: dict | None = None,        # decode: {"k", "v", "pos"}, + "seq_mesh" when split
     window: int | None = None,
+    deltas: dict | None = None,       # whole-shape additions to wq / wk / wv (LoRA)
 ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention; with ``cache`` one decode step.
 
@@ -224,7 +237,10 @@ def attention_apply(
     ``cache["v"]`` in place, and the returned cache holds those same
     tensors: the caller hands in buffers it owns (``transformer.decode_step``
     copies the state it was given once, so that state is never written and
-    a retried step starts from the same bits).
+    a retried step starts from the same bits). ``cache["seq_mesh"]`` (a
+    mesh) says the caches hold this rank's positions of the cache sequence,
+    split over its ``model`` axis (``kv_seq -> model``): ``_decode_split``.
+    ``deltas`` are added to the weights (each rank adds its part of them).
     """
     dt = x.dtype
     mesh = S.param_mesh(params["wq"])
@@ -232,9 +248,16 @@ def attention_apply(
     part = ("model",) if tp else ()
     if tp:
         x = S.sum_grad(x, mesh)
-    q = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wq"]).to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wk"], part).to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, S.local_param(params["wv"], part).to(dt))
+
+    def weight(name, partial=part):
+        w = S.local_param(params[name], partial)
+        if deltas is not None:
+            w = w + S.part_like(deltas[name], params[name])
+        return w.to(dt)
+
+    q = torch.einsum("bsd,dhk->bshk", x, weight("wq", ()))
+    k = torch.einsum("bsd,dhk->bshk", x, weight("wk"))
+    v = torch.einsum("bsd,dhk->bshk", x, weight("wv"))
     if tp and not S.model_sharded(params["wk"]):
         k, v = _local_kv_heads(k, v, q.shape[2], cfg, mesh)
     if cfg.qk_norm:
@@ -253,14 +276,18 @@ def attention_apply(
     else:
         # decode: append this step's k/v into the (ring) cache
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]   # pos (B,)
-        S_max = ck.shape[1]
-        slot = pos % S_max
-        ck = _scatter_step(ck, k, slot)
-        cv = _scatter_step(cv, v, slot)
+        seq_mesh = cache.get("seq_mesh")
+        if seq_mesh is not None and S.axis_size(seq_mesh, "model") > 1:
+            out, ck, cv = _decode_split(q, k, v, ck, cv, pos, seq_mesh)
+        else:
+            S_max = ck.shape[1]
+            slot = pos % S_max
+            ck = _scatter_step(ck, k, slot)
+            cv = _scatter_step(cv, v, slot)
+            kv_len = torch.clamp(pos + 1, max=S_max)
+            out = attention_core(q, ck, cv, causal=False, window=None,
+                                 kv_valid_len=kv_len, chunk=cfg.attn_chunk)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-        kv_len = torch.clamp(pos + 1, max=S_max)
-        out = attention_core(q, ck, cv, causal=False, window=None,
-                             kv_valid_len=kv_len, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, S.local_param(params["wo"]).to(dt))
     if tp:
         y = S.reduce_over(y, mesh, ("model",))   # wo's row-parallel partial sums
@@ -278,6 +305,46 @@ def _local_kv_heads(k, v, h_local: int, cfg: ModelConfig, mesh):
         raise errors.InvalidArgError(f"query heads {q0}..{q0 + h_local - 1} of this rank do not "
                                      f"cover whole KV groups of {groups}")
     return k[:, :, first:last + 1], v[:, :, first:last + 1]
+
+
+def _decode_split(q, k, v, ck, cv, pos, mesh):
+    """One decode step's attention over a cache whose sequence is split over
+    ``mesh``'s ``model`` axis (flash-decoding): ``model`` rank r holds ring
+    slots [r S/M, (r+1) S/M) of every sequence. This step's k/v are written
+    by the rank that holds slot ``pos % S`` alone; each rank scores its
+    slots (the valid ones by absolute slot, ``kv_valid_len``), and the
+    softmax is combined over ``model`` in float32: the row max
+    (``all_reduce(MAX)``), the denominator and the probabilities' product
+    with v (``all_reduce(SUM)``), the probabilities rounded to v's dtype as
+    ``attention_core`` rounds them. Returns (out, ck, cv); q (B, 1, H, dh),
+    k / v (B, 1, Hkv, dh), the caches (B, S/M, Hkv, dh) written in place."""
+    B, _, H, dh = q.shape
+    S_l, Hkv = ck.shape[1], ck.shape[2]
+    M, r = S.axis_size(mesh, "model"), S.axis_rank(mesh, "model")
+    lo = r * S_l
+    slot = (pos % (S_l * M)).long()
+    own = ((slot >= lo) & (slot < lo + S_l))[:, None, None]
+    at = torch.clamp(slot - lo, 0, S_l - 1)
+    rows = torch.arange(B, device=ck.device)
+    ck[rows, at] = torch.where(own, k[:, 0], ck[rows, at])
+    cv[rows, at] = torch.where(own, v[:, 0], cv[rows, at])
+    kv_len = torch.clamp(pos + 1, max=S_l * M)
+    valid = (lo + torch.arange(S_l, device=ck.device))[None, :] < kv_len[:, None]   # (B, S_l)
+
+    qf = q * dh**-0.5
+    kk, vv = ck, cv
+    if H > Hkv:
+        kk = kk.repeat_interleave(H // Hkv, dim=2)
+        vv = vv.repeat_interleave(H // Hkv, dim=2)
+    logits = torch.einsum("bchd,bshd->bhcs", qf.float(), kk.float())
+    logits = logits + torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
+    m = S.all_reduce(logits.amax(dim=-1, keepdim=True), mesh, "model",
+                     op=torch.distributed.ReduceOp.MAX)
+    e = torch.exp(logits - m)
+    denom = S.all_reduce(e.sum(dim=-1, keepdim=True), mesh, "model")
+    probs = (e / denom).to(cv.dtype).float()
+    out = S.all_reduce(torch.einsum("bhcs,bshd->bchd", probs, vv.float()), mesh, "model")
+    return out.to(q.dtype), ck, cv
 
 
 def _scatter_step(cache: torch.Tensor, kv: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:

@@ -22,13 +22,15 @@ the reference's layout (``param_tree``), for ``sharding.logical_to_sharding``.
 ``param_tree`` maps the parameters (or anything with one value per
 parameter, such as an optimizer's moments) back into it.
 
-``mesh=`` (a ``DeviceMesh`` with ``data`` / ``model`` axes, ``pod`` too) trains
-the dense, VLM and MoE families on it: ``init`` draws the whole weights on
-every rank from the same generator and keeps each rank's part
-(``sharding.shard_params``, the reference's sharded train step's layout);
-``forward`` / ``loss`` take a batch split over ``batch`` (``sharding.
-place_batch``). Another family on a mesh raises ``InvalidArgError`` (ROADMAP
-A.10c).
+``mesh=`` (a ``DeviceMesh`` with ``data`` / ``model`` axes, ``pod`` too) runs
+every family on it: ``init`` draws the whole weights on every rank from the
+same generator and keeps each rank's part (``sharding.shard_params``, the
+reference's layout under the rules of the active ``axis_rules`` on that
+mesh, the default rules otherwise); ``forward`` / ``loss`` take a batch
+split over ``batch`` (``sharding.place_batch``); ``init_decode_state`` and
+``decode_step`` take the decode state as ``DTensor``s laid out by
+``decode_state_axes`` under the same rules (``launch.mesh.rules_for`` gives
+a decode shape's: run them inside ``axis_rules(mesh, rules_for(...))``).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streams import _as_tensor, resolve_device
 
-from . import encdec, hybrid, moe, transformer
+from . import encdec, hybrid, moe, sharding, transformer
 from .layers import build_mlp_specs
 from .sharding import shard_params
 
@@ -56,7 +58,6 @@ class Model:
                  expert_shard: tuple[int, int] | None = None, mesh=None):
         transformer.check_family(cfg)
         if mesh is not None:
-            transformer.check_mesh_family(cfg)
             if expert_shard is not None:
                 raise errors.InvalidArgError("expert_shard and mesh: the mesh shards the "
                                              "experts over 'model' itself")
@@ -87,15 +88,15 @@ class Model:
         params = self._init(generator, self.device)
         return params if self.mesh is None else self.shard(params)
 
-    def shard(self, params, mesh=None):
+    def shard(self, params, mesh=None, device=None):
         """``params`` (whole, equal on every rank) distributed over ``mesh``
         (default: the model's) in place, as ``sharding.shard_params`` lays
-        them out; returns them."""
+        them out, each rank's part moved to ``device`` (default: where it
+        is); returns them."""
         mesh = self.mesh if mesh is None else mesh
         if mesh is None:
             raise errors.InvalidArgError("shard needs a mesh: Model(cfg, mesh=) or mesh=")
-        transformer.check_mesh_family(self.cfg)
-        return shard_params(params, self, mesh)
+        return shard_params(params, self, mesh, device)
 
     def abstract_init(self, generator: torch.Generator | None = None):
         """Shape-only init, the dry run's entry point: the parameters built on
@@ -123,11 +124,26 @@ class Model:
                                        impl=self.impl, **kw)
         fwd_kw = {"frames": batch["frames"]} if self.cfg.family == "encdec" else {}
         logits = self.forward(params, batch["tokens"], **fwd_kw).logits
-        xent, _ = transformer.cross_entropy(logits, batch["targets"])
+        if self.mesh is None:
+            xent, _ = transformer.cross_entropy(logits, batch["targets"])
+        else:
+            xent, _ = transformer.mesh_xent(logits, batch["targets"], params.unembed)
         return xent, {"xent": xent}
 
     def init_decode_state(self, batch: int, max_len: int) -> dict:
-        return self._mod.init_decode_state(self.cfg, batch, max_len, device=self.device)
+        """Zeros; on the model's mesh each rank's part of them (``shard_state``)."""
+        state = self._mod.init_decode_state(self.cfg, batch, max_len, device=self.device)
+        return state if self.mesh is None else self.shard_state(state)
+
+    def shard_state(self, state: dict, mesh=None, device=None) -> dict:
+        """A whole decode state (equal on every rank) as ``DTensor``s laid out by
+        ``decode_state_axes`` under the mesh's rules, as the reference's dry
+        run places it (``sanitize_shardings``); each rank keeps its part, on
+        ``device`` (default: where it is)."""
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is None:
+            raise errors.InvalidArgError("shard_state needs a mesh: Model(cfg, mesh=) or mesh=")
+        return sharding.shard_tree(state, self.decode_state_axes(), mesh, device)
 
     def decode_state_axes(self) -> dict:
         return self._mod.decode_state_axes(self.cfg)
@@ -139,12 +155,32 @@ class Model:
         return self._mod.decode_step(params, self.cfg, state, tokens, pos)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None, *, model=None):
     """The port's parameters from the reference's ``Model.init`` tree as numpy
     arrays, bit for bit, on ``device`` (default CUDA): leaves stacked on a
-    layer axis are unstacked into per-layer modules (``lm_from_tree``)."""
+    layer axis are unstacked into per-layer modules (``lm_from_tree``). With
+    ``model`` on a mesh, each rank's part of them (``Model.shard``; the
+    whole tree is read on the host)."""
     transformer.check_family(cfg)
-    return lm_from_tree(tree, device)
+    if model is None or model.mesh is None:
+        return lm_from_tree(tree, device)
+    return model.shard(lm_from_tree(tree, "cpu"), device=resolve_device(device))
+
+
+def decode_state_from_numpy(model, tree: dict, device=None) -> dict:
+    """A decode state from the reference's (``init_decode_state`` or a decode
+    step's, as numpy), on ``device`` (default CUDA); on the model's mesh each
+    rank's part of it (``Model.shard_state``; the whole tree is read on the
+    host)."""
+    def t(node, dev):
+        if isinstance(node, dict):
+            return {k: t(v, dev) for k, v in node.items()}
+        return _as_tensor(np.asarray(node)).reshape(np.shape(node)).to(dev)
+
+    dev = resolve_device(device)
+    if model.mesh is None:
+        return t(tree, dev)
+    return model.shard_state(t(tree, torch.device("cpu")), device=dev)
 
 
 def _index(tree, i: int):

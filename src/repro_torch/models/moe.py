@@ -102,8 +102,10 @@ class _Route(NamedTuple):
     aux: torch.Tensor
 
 
-def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Route:
-    """Top-k routing of every token group at once. xg (G, T, d)."""
+def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor, span=None) -> _Route:
+    """Top-k routing of every token group at once. xg (G, T, d). ``span`` =
+    (mesh, k): each group is this rank's share of a group held by k ranks of
+    the batch axes (``_span_offsets``)."""
     G, T, d = xg.shape
     E, K = cfg.num_experts, cfg.top_k
     dev = xg.device
@@ -115,9 +117,13 @@ def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Route:
 
     # Switch-style load-balancing auxiliary loss. The one-hot is a comparison:
     # F.one_hot checks its input's range on the host.
-    me = probs.mean(dim=1)
     first = expert_ids[..., 0, None] == torch.arange(E, device=dev)
-    ce = first.float().mean(dim=1)
+    if span is None:
+        me = probs.mean(dim=1)
+        ce = first.float().mean(dim=1)
+    else:                       # the means over the whole group, on its k ranks
+        me = _span_rows(probs.sum(dim=1), *span).sum(dim=0) / (T * span[1])
+        ce = _span_rows(first.float().sum(dim=1), *span).sum(dim=0) / (T * span[1])
     aux = E * (me * ce).sum(-1)                                     # (G,)
 
     # ---- sort-based dispatch ------------------------------------------------
@@ -130,7 +136,31 @@ def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Route:
     # position within expert = rank - start of the expert's run
     starts = torch.searchsorted(s_expert, torch.arange(E, device=dev).expand(G, E).contiguous())
     pos = torch.arange(T * K, device=dev) - torch.gather(starts, 1, s_expert)
+    if span is not None:
+        # the group's ranks hold its tokens in order: before this rank's
+        # assignments to an expert come those of the ranks before it
+        counts = torch.diff(starts, dim=1, append=torch.full((G, 1), T * K, dtype=starts.dtype,
+                                                                device=dev))
+        before = _span_rows(counts, *span, upto_self=True).sum(dim=0)   # (G, E)
+        pos = pos + torch.gather(before, 1, s_expert)
     return _Route(s_expert, s_token, s_gate, pos, order, aux)
+
+
+def _span_rows(t: torch.Tensor, mesh, k: int, upto_self: bool = False) -> torch.Tensor:
+    """The tensors ``t`` of the k ranks (of the batch axes, in order) that hold
+    this rank's group, stacked on a new leading dim; with ``upto_self`` only
+    those of the ranks before this one (zeros for the rest). Gathered over
+    the batch axes, the gradient summed back."""
+    rows = t[None]
+    for a in reversed(S.batch_axes(mesh)):          # inner axis first: pod-major order
+        rows = S.gather_over(rows, mesh, a, 0)
+    i = S.batch_rank(mesh)
+    g0 = i - i % k
+    mine = rows[g0:g0 + k]
+    if upto_self:
+        mine = mine * (torch.arange(k, device=t.device) < i - g0).to(t.dtype).reshape(
+            (k,) + (1,) * t.ndim)
+    return mine
 
 
 def _slots(r: _Route, C: int, first_expert: int, El: int) -> tuple:
@@ -221,39 +251,56 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
 
     On a mesh (``DTensor`` weights; x is this rank's batch rows) the
     reference's layout (``src/repro/models/moe.py:133-148``): the groups
-    split over the batch axes (x's rows are whole groups), the routing of
-    each is computed on every ``model`` rank alike, each ``model`` rank runs
-    the expert products of its E / model experts (``experts -> model``),
-    and their outputs are gathered over ``model`` before the combine. The
-    aux loss is the mean over every group of the global batch.
+    split over the batch axes (x's rows are whole groups; where there are
+    fewer groups than ranks, each group is held by k consecutive ranks, and
+    its positions within the experts and its aux loss are taken over them:
+    ``_span_rows``), and the routing of each is computed on every ``model``
+    rank alike. Which dim of ``w_gate`` is split over ``model`` says the
+    layout of the experts: ``experts -> model`` (expert parallelism) runs
+    the products of the rank's E / model experts and gathers their outputs
+    over ``model`` before the combine; ``expert_mlp -> model`` (TP-MoE,
+    ``launch.mesh.rules_for`` where the experts do not divide ``model``)
+    fills every expert's buffer on every rank, runs ``w_gate`` / ``w_up``
+    by columns and ``w_down`` by rows, and adds the partial outputs over
+    ``model``. The aux loss is the mean over every group of the global batch.
     """
     mesh = S.param_mesh(params["w_gate"])
     B, S_, d = x.shape
     T = B * S_
     D = 1 if mesh is None else S.batch_width(mesh)
     G = _groups(T * D, cfg)                # the groups of the global batch
-    if G % D:
+    if G % D == 0:
+        G_l, span = G // D, None
+    elif D % G == 0:                       # a group on each D / G ranks
+        G_l, span = 1, (mesh, D // G)
+    else:
         raise errors.InvalidArgError(
             f"{G} token groups do not split over the {D} ranks of {S.batch_axes(mesh)}")
-    G_l, E = G // D, cfg.num_experts
+    E = cfg.num_experts
     dt = x.dtype
-    xg = x.reshape(G_l, T // G_l, d)       # this rank's groups, whole
-    C = _capacity(T // G_l, cfg)
+    xg = x.reshape(G_l, T // G_l, d)       # this rank's groups (or its share of one)
+    C = _capacity((T // G_l) * (1 if span is None else span[1]), cfg)
 
     w_gate, w_up, w_down = (S.local_param(params[k]) for k in ("w_gate", "w_up", "w_down"))
     El = w_gate.shape[0]
-    ep = S.model_sharded(params["w_gate"])
+    split = S.split_dim(params["w_gate"])
+    ep, tp = split == 0, split == 2
+    if split not in (None, 0, 2):
+        raise errors.InvalidArgError(f"w_gate split over 'model' on dim {split}: the experts "
+                                     "split by 'experts' (dim 0) or 'expert_mlp' (dim 2)")
     if ep:
         first_expert = S.axis_rank(mesh, "model") * El
-    r = _route(S.local_param(params["router"]), cfg, xg)
+    r = _route(S.local_param(params["router"]), cfg, xg, span)
     _record(r, C, E)
     buf_idx, keep = _slots(r, C, first_expert, El)
-    # on a mesh the buffer holds this rank's experts' rows: x's gradient from them is partial
-    buf = _fill(r, S.sum_grad(xg, mesh) if ep else xg, buf_idx, El, C)    # (G, El, C, d)
+    # on a mesh the buffer feeds this rank's part of the experts: x's gradient from it is partial
+    buf = _fill(r, S.sum_grad(xg, mesh) if ep or tp else xg, buf_idx, El, C)  # (G, El, C, d)
     out_buf = _experts(buf, w_gate, w_up, w_down)
     if ep:
         out_buf = S.gather_over(out_buf, mesh, "model", 1, grad="slice")
         buf_idx, keep = _slots(r, C, 0, E)
+    elif tp:
+        out_buf = S.reduce_over(out_buf, mesh, ("model",))
     y = _combine(out_buf, (buf_idx, r.s_token, r.s_gate, keep, r.aux, r.order),
                  T // G_l, cfg.top_k, dt)
     aux = S.global_mean(r.aux, mesh)

@@ -170,9 +170,10 @@ def logical_to_sharding(axes_tree, mesh, rules: dict | None = None):
 
 
 def _shape(leaf) -> tuple:
-    """A leaf's logical shape; a list is a layer-stacked leaf (one tensor a layer)."""
+    """A leaf's logical shape; a list is a layer-stacked leaf (one tensor a layer, or
+    a list of them: a llama4 group's dense layers)."""
     if isinstance(leaf, list):
-        return (len(leaf),) + tuple(leaf[0].shape)
+        return (len(leaf),) + _shape(leaf[0])
     return tuple(leaf.shape)
 
 
@@ -223,7 +224,7 @@ def constrain(x, *axes: str | None):
 def placements_for(mesh, *axes: str | None) -> tuple:
     """The placements of a tensor whose dims carry the logical ``axes``, under
     the active rules when ``mesh`` is the active mesh, else the default ones."""
-    if _ctx.mesh is mesh:
+    if _is_active(mesh):
         return NamedSharding(mesh, spec_for(axes)).placements
     with axis_rules(mesh):
         return NamedSharding(mesh, spec_for(axes)).placements
@@ -254,10 +255,34 @@ def axis_rank(mesh, axis: str) -> int:
     return mesh.get_local_rank(axis) if axis in tuple(mesh.mesh_dim_names) else 0
 
 
-def batch_axes(mesh) -> tuple[str, ...]:
-    """The mesh axes the batch shards over (the rules' ``batch``: pod, data)."""
-    mapped = DEFAULT_RULES["batch"]
+def _is_active(mesh) -> bool:
+    """Whether ``mesh`` is the active one (a ``DTensor`` may carry an equal
+    ``DeviceMesh`` object of its own: DTensor's sharding cache hands out
+    the mesh it first saw)."""
+    return _ctx.mesh is not None and (_ctx.mesh is mesh or _ctx.mesh == mesh)
+
+
+def active_rules(mesh) -> dict:
+    """The rule table that lays out tensors on ``mesh``: the innermost
+    ``axis_rules``' when it was entered with this mesh, else the defaults."""
+    return _ctx.rules if _is_active(mesh) else DEFAULT_RULES
+
+
+def rule_axes(mesh, axis: str) -> tuple[str, ...]:
+    """The mesh axes a logical axis maps to on ``mesh`` under its rules
+    (``active_rules``), in the mapping's order; () where it is replicated."""
+    mapped = active_rules(mesh).get(axis)
+    if mapped is None:
+        return ()
+    mapped = mapped if isinstance(mapped, tuple) else (mapped,)
     return tuple(a for a in mapped if a in tuple(mesh.mesh_dim_names))
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes the batch shards over: the rules' ``batch`` (pod, data),
+    none where the active rules replicate the batch (a decode batch that
+    does not divide, ``launch.mesh.rules_for``)."""
+    return rule_axes(mesh, "batch")
 
 
 def batch_width(mesh) -> int:
@@ -282,6 +307,22 @@ def sharded_axes(t) -> tuple[str, ...]:
 def model_sharded(t) -> bool:
     """Whether a parameter is split over ``model`` (its layer runs Megatron-style)."""
     return "model" in sharded_axes(t) and axis_size(t.device_mesh, "model") > 1
+
+
+def split_dim(t, axis: str = "model") -> int | None:
+    """The dim of a ``DTensor`` split over ``axis`` (of more than one rank), else None."""
+    if not isinstance(t, DTensor) or axis_size(t.device_mesh, axis) == 1:
+        return None
+    pl = t.placements[tuple(t.device_mesh.mesh_dim_names).index(axis)]
+    return pl.dim if pl.is_shard() else None
+
+
+def part_like(x: torch.Tensor, t) -> torch.Tensor:
+    """This rank's part of ``x``, a whole tensor of ``t``'s shape, split along
+    the dim that the ``DTensor`` ``t`` splits over ``model`` (``x`` itself
+    where it splits none)."""
+    dim = split_dim(t)
+    return x if dim is None else _my_part(x, t.device_mesh, "model", dim)
 
 
 # the single-tensor collectives, under their names in this torch (newer
@@ -503,11 +544,57 @@ def param_shardings(params, tree) -> list[NamedSharding]:
 
 def model_shardings(params, axes_tree, mesh) -> list[NamedSharding]:
     """The layout of each parameter, as the reference's sharded step takes it:
-    ``sanitize_shardings(shapes, logical_to_sharding(axes, mesh), mesh)``."""
+    ``sanitize_shardings(shapes, logical_to_sharding(axes, mesh, rules), mesh)``
+    under the mesh's rules (``active_rules``)."""
     from .model import param_tree
 
-    tree = sanitize_shardings(param_tree(params), logical_to_sharding(axes_tree, mesh), mesh)
+    tree = sanitize_shardings(param_tree(params),
+                              logical_to_sharding(axes_tree, mesh, active_rules(mesh)), mesh)
     return param_shardings(params, tree)
+
+
+def shard_tree(tree, axes_tree, mesh, device=None):
+    """A tree of whole tensors (equal on every rank; ``axes_tree`` of the same
+    structure, as a decode state and ``decode_state_axes``) as ``DTensor``s laid
+    out as the reference lays them, ``sanitize_shardings(shapes,
+    logical_to_sharding(axes, mesh, rules), mesh)`` under the mesh's rules:
+    each rank keeps its part, on ``device``."""
+    shardings = sanitize_shardings(
+        tree, logical_to_sharding(axes_tree, mesh, active_rules(mesh)), mesh)
+    return _map_shardings(lambda t, sh: distribute_local(t, mesh, sh.placements, device),
+                          tree, shardings)
+
+
+def local_tree(tree):
+    """Each ``DTensor`` of a tree of dicts as its local shard."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def tree_like(local, like):
+    """Local shards back into the ``DTensor``s of the tree ``like`` (their
+    layouts and whole shapes); a local leaf of ``like`` takes the tensor as it is."""
+    if isinstance(like, dict):
+        return {k: tree_like(local[k], v) for k, v in like.items()}
+    if not isinstance(like, DTensor):
+        return local
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def local_index(t, dim: int, i: int) -> int | None:
+    """Where index ``i`` of ``t``'s dim ``dim`` lies in this rank's shard of it
+    (a ``DTensor`` split evenly), or None when another rank holds it."""
+    if not isinstance(t, DTensor):
+        return i
+    mesh, n, lo = t.device_mesh, t.shape[dim], 0
+    for m, pl in enumerate(t.placements):
+        if pl.is_shard() and pl.dim == dim:
+            n //= int(mesh.size(m))
+            lo = lo * int(mesh.size(m)) + mesh.get_local_rank(m)
+    lo *= n
+    return i - lo if lo <= i < lo + n else None
 
 
 def _set_param(module, name: str, value) -> None:
@@ -518,24 +605,27 @@ def _set_param(module, name: str, value) -> None:
 
 
 @torch.no_grad()
-def shard_params(params, model, mesh):
+def shard_params(params, model, mesh, device=None):
     """Distribute a model's parameters over ``mesh``, in place: each becomes a
     ``DTensor`` parameter placed as the reference's sharded train step places
     it (``model_shardings`` of ``model.axes()``): FSDP ``w_embed -> data``;
     ``heads`` / ``kv`` / ``mlp`` / ``vocab`` / ``experts -> model``; the rest
     (norms, the router's expert dim, the CB tiles) replicated. Every rank
-    passes the same whole weights; each keeps its part. Returns ``params``."""
+    passes the same whole weights; each keeps its part, moved to ``device``
+    (default: where it is). The rules are the mesh's (``active_rules``).
+    Returns ``params``."""
     shs = model_shardings(params, model.axes(), mesh)
     named = list(params.named_parameters())
     for (name, p), sh in zip(named, shs, strict=True):
         _set_param(params, name, torch.nn.Parameter(distribute_local(p.detach(), mesh,
-                                                                     sh.placements)))
+                                                                     sh.placements, device)))
     return params
 
 
 def place_batch(batch: dict, mesh) -> dict:
     """The global batch (equal on every rank) as ``DTensor``s split on the
-    leading dim over ``batch -> (pod, data)``, replicated over ``model``."""
+    leading dim over ``batch -> (pod, data)``, replicated over ``model`` (and
+    whole on every rank where the active rules replicate ``batch``)."""
     out = {}
     w = batch_width(mesh)
     for k, v in batch.items():
@@ -550,15 +640,23 @@ def place_batch(batch: dict, mesh) -> dict:
 
 def local_batch(x, mesh):
     """This rank's rows of a batch tensor: a ``DTensor``'s local shard, or the
-    rank's part of a whole tensor that every rank holds."""
+    rank's part of a whole tensor that every rank holds (all of it where the
+    active rules replicate ``batch``)."""
     if isinstance(x, DTensor):
         return x.to_local()
     if x is None or mesh is None:
         return x
     w = batch_width(mesh)
-    if w == 1:
-        return x
+    if x.shape[0] % w:
+        raise errors.InvalidArgError(
+            f"{x.shape[0]} rows do not split over the {w} ranks of {batch_axes(mesh)}: "
+            "replicate the batch (the rules' batch -> None, as rules_for does at decode)")
+    return x if w == 1 else x.chunk(w, 0)[batch_rank(mesh)]
+
+
+def batch_rank(mesh) -> int:
+    """This rank's index among the ranks of the batch axes (pod-major)."""
     i = 0
     for a in batch_axes(mesh):
         i = i * axis_size(mesh, a) + axis_rank(mesh, a)
-    return x.chunk(w, 0)[i]
+    return i

@@ -19,10 +19,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import errors
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streams import resolve_device
 
-from .layers import _normal, rmsnorm
+from . import sharding as S
+from .layers import _normal, rmsnorm, rmsnorm_split
 
 
 def _dims(cfg: ModelConfig):
@@ -86,6 +88,63 @@ def _in_proj(params, x: torch.Tensor, dt_):
     return z, xBC, dt
 
 
+class _Mesh:
+    """How a mixer with ``DTensor`` weights computes on its mesh (see
+    ``ssm_apply``): ``tp`` when its ``mlp`` dims (z, xBC's channels, the
+    norm, out_proj's rows) split over ``model``; ``w(name)`` is the rank's
+    weight, its gradient summed over ``model`` where it is replicated there
+    (each rank uses it for its part); ``heads`` the SSD heads this rank runs."""
+
+    def __init__(self, params, cfg: ModelConfig, heads_split: bool):
+        self.params = params
+        self.mesh = S.param_mesh(params["in_z"])
+        self.tp = S.model_sharded(params["in_z"])
+        split = [k for k in ("in_xbc", "conv_w", "conv_b", "norm_w", "out_proj")
+                 if S.model_sharded(params[k])]
+        if not self.tp and split:
+            raise errors.InvalidArgError(
+                f"SSM weights {split} are split over 'model' but in_z is not: the mixer "
+                "splits its 'mlp' dims together")
+        self.xbc_split = self.tp and S.model_sharded(params["in_xbc"])
+        self.part = ("model",) if self.tp else ()
+        nh = _dims(cfg)[1]
+        if self.tp and heads_split:
+            n = nh // S.axis_size(self.mesh, "model")
+            self.heads = slice(S.axis_rank(self.mesh, "model") * n, (S.axis_rank(self.mesh,
+                                                                               "model") + 1) * n)
+        else:
+            self.heads = slice(0, nh)
+
+    def w(self, name: str) -> torch.Tensor:
+        return S.local_param(self.params[name], self.part)
+
+
+def _heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the SSD's heads split over ``model`` in the full-sequence
+    forward: the rules map ``heads`` to it (the reference constrains xh so)
+    and the heads divide; otherwise every rank runs all of them (the
+    reference's ``sanitize_shardings`` replicates such a dim) and keeps its
+    part of ``d_in`` after the SSD."""
+    if mesh is None or S.axis_size(mesh, "model") == 1:
+        return False
+    return "model" in S.rule_axes(mesh, "heads") and \
+        _dims(cfg)[1] % S.axis_size(mesh, "model") == 0
+
+
+def _finish(m: _Mesh, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor, dt_) -> torch.Tensor:
+    """The gated norm and out_proj of the SSD's output y (this rank's heads,
+    ``d_in`` last): on a split mixer the rank's part of ``d_in``, the norm's
+    sum of squares and out_proj's row-parallel partial sums added over
+    ``model``."""
+    if not m.tp:
+        y = rmsnorm(y * F.silu(z), m.w("norm_w"))
+        return y @ m.w("out_proj").to(dt_)
+    if m.heads.stop - m.heads.start == _dims(cfg)[1]:
+        y = S._my_part(y, m.mesh, "model", y.ndim - 1)      # every head ran here
+    y = rmsnorm_split(y * F.silu(z), m.w("norm_w"), m.mesh, _dims(cfg)[0])
+    return S.reduce_over(y @ m.w("out_proj").to(dt_), m.mesh, ("model",))
+
+
 def ssd_chunked(
     xh: torch.Tensor,    # (B, L, nh, hd)
     dt: torch.Tensor,    # (B, L, nh), post-softplus
@@ -146,22 +205,37 @@ def ssd_chunked(
 
 def ssm_apply(params, cfg: ModelConfig, x: torch.Tensor,
               state: dict | None = None) -> tuple[torch.Tensor, None]:
-    """Full-sequence forward (training / prefill). x (B, L, d)."""
+    """Full-sequence forward (training / prefill). x (B, L, d).
+
+    On a mesh (``DTensor`` weights, x this rank's rows) the reference's
+    layout (``src/repro/models/ssm.py:165,171``): z / xBC / norm / out_proj
+    split by ``mlp`` over ``model``, the depthwise conv on the rank's
+    channels of xBC, then xBC gathered over ``model`` so that each rank holds
+    its heads of x (``heads -> model``; all of them where they do not divide)
+    and all of B and C; the gated norm's sum of squares and out_proj's
+    row-parallel partial sums added over ``model``."""
     dt_ = x.dtype
     d_in, nh, hd, ds = _dims(cfg)
-    z, xBC, dt_raw = _in_proj(params, x, dt_)
-    xBC = F.silu(_causal_conv(xBC, params["conv_w"].to(dt_), params["conv_b"].to(dt_)))
-    xs = xBC[..., :d_in]
+    m = _Mesh(params, cfg, _heads_split(cfg, S.param_mesh(params["in_z"])))
+    if m.tp:
+        x = S.sum_grad(x, m.mesh)
+    z = x @ m.w("in_z").to(dt_)
+    xBC = x @ m.w("in_xbc").to(dt_)
+    dt_raw = x @ m.w("in_dt").to(dt_)
+    xBC = F.silu(_causal_conv(xBC, m.w("conv_w").to(dt_), m.w("conv_b").to(dt_)))
+    if m.xbc_split:
+        xBC = S.gather_over(xBC, m.mesh, "model", xBC.ndim - 1)
+    h = m.heads
+    xs = xBC[..., h.start * hd:h.stop * hd]
     Bm = xBC[..., d_in:d_in + ds]
     Cm = xBC[..., d_in + ds:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"])
-    xh = xs.reshape(*xs.shape[:-1], nh, hd)
+    dt = F.softplus(dt_raw.float()[..., h] + m.w("dt_bias")[h][None, None, :])
+    A = -torch.exp(m.w("A_log")[h])
+    xh = xs.reshape(*xs.shape[:-1], h.stop - h.start, hd)
     y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(*x.shape[:-1], d_in).to(dt_)
-    y = rmsnorm(y * F.silu(z), params["norm_w"])
-    return y @ params["out_proj"].to(dt_), None
+    y = y + m.w("D")[h][None, None, :, None] * xh.float()
+    y = y.reshape(*x.shape[:-1], (h.stop - h.start) * hd).to(dt_)
+    return _finish(m, cfg, y, z, dt_), None
 
 
 def ssm_state_init(cfg: ModelConfig, batch: int, n_layers: int, device=None) -> dict:
@@ -182,29 +256,39 @@ SSM_STATE_AXES = {"ssd": (None, "batch", "heads", None, None),
 def ssm_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
                     state: dict) -> tuple[torch.Tensor, dict]:
     """Single-token step. x (B, 1, d); state {"ssd", "conv"} of one layer.
-    Returns (out (B, 1, d), new state); ``state`` is not written."""
+    Returns (out (B, 1, d), new state); ``state`` is not written.
+
+    On a mesh the state is this rank's part of it (``SSM_STATE_AXES``): the
+    conv history holds the rank's xBC channels (``mlp``), the SSD state its
+    heads, or all of them where the rules replicate ``heads`` (decode) or
+    they do not divide; the rest is ``ssm_apply``'s layout."""
     dt_ = x.dtype
     d_in, nh, hd, ds = _dims(cfg)
-    z, xBC, dt_raw = _in_proj(params, x[:, 0, :], dt_)
+    m = _Mesh(params, cfg, state["ssd"].shape[1] < nh)
+    z = x[:, 0, :] @ m.w("in_z").to(dt_)
+    xBC = x[:, 0, :] @ m.w("in_xbc").to(dt_)
+    dt_raw = x[:, 0, :] @ m.w("in_dt").to(dt_)
     # conv ring: state["conv"] (B, W-1, C) holds the previous inputs
     hist = torch.cat([state["conv"].to(dt_), xBC[:, None, :]], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", hist, params["conv_w"].to(dt_))
-    xBC_t = F.silu(conv_out + params["conv_b"].to(dt_))
+    conv_out = torch.einsum("bwc,wc->bc", hist, m.w("conv_w").to(dt_))
+    xBC_t = F.silu(conv_out + m.w("conv_b").to(dt_))
     new_conv = hist[:, 1:, :].float()
+    if m.xbc_split:
+        xBC_t = S.all_gather(xBC_t, m.mesh, "model", 1)
 
-    xs = xBC_t[..., :d_in]
+    h = m.heads
+    xs = xBC_t[..., h.start * hd:h.stop * hd]
     Bm = xBC_t[..., d_in:d_in + ds].float()
     Cm = xBC_t[..., d_in + ds:].float()
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, :])
-    A = -torch.exp(params["A_log"])
-    xh = xs.reshape(-1, nh, hd).float()
+    dt = F.softplus(dt_raw.float()[..., h] + m.w("dt_bias")[h][None, :])
+    A = -torch.exp(m.w("A_log")[h])
+    xh = xs.reshape(-1, h.stop - h.start, hd).float()
 
-    S = state["ssd"]                                        # (B, nh, hd, ds)
+    st = state["ssd"]                                       # (B, nh, hd, ds)
     decay = torch.exp(dt * A[None, :])                      # (B, nh)
-    S_new = decay[:, :, None, None] * S + torch.einsum("bh,bhp,bs->bhps", dt, xh, Bm)
+    S_new = decay[:, :, None, None] * st + torch.einsum("bh,bhp,bs->bhps", dt, xh, Bm)
     y = torch.einsum("bs,bhps->bhp", Cm, S_new)             # (B, nh, hd)
-    y = y + params["D"][None, :, None] * xh
-    y = y.reshape(-1, d_in).to(dt_)
-    y = rmsnorm(y * F.silu(z), params["norm_w"])
-    out = (y @ params["out_proj"].to(dt_))[:, None, :]
+    y = y + m.w("D")[h][None, :, None] * xh
+    y = y.reshape(-1, (h.stop - h.start) * hd).to(dt_)
+    out = _finish(m, cfg, y, z, dt_)[:, None, :]
     return out, {"ssd": S_new, "conv": new_conv}

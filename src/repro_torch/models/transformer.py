@@ -24,10 +24,15 @@ points (``src/repro/models/transformer.py:216, 247``): the embedding reads
 its ``vocab``-split table vocab-parallel (each ``model`` rank looks up the
 ids it holds, the rows added over ``model``), the unembedding and the
 float32 cross-entropy are vocab-parallel (the log-sum-exp and the target
-logit added over ``model``), and the means are over the global batch. The
-dense, VLM and MoE families run there; SSM, hybrid and encoder-decoder on a
-mesh are ROADMAP A.10c, and decoding on one is not ported (the reference
-serves one device).
+logit added over ``model``), and the means are over the global batch. Every
+family runs there (the SSM mixer in ``ssm.py``, the hybrid and
+encoder-decoder wrappers in ``hybrid.py`` / ``encdec.py``). ``decode_step``
+on a mesh takes the decode state as ``DTensor``s laid out by
+``decode_state_axes`` under the decode rules (``launch.mesh.rules_for``: the
+batch over ``data`` where it divides, the KV cache's sequence over
+``model``, heads replicated), as the reference's dry run lowers it
+(``src/repro/launch/dryrun.py:229-252``); its logits stay split over
+``vocab``.
 """
 from __future__ import annotations
 
@@ -49,7 +54,6 @@ from . import sharding as S
 from . import ssm as ssm_mod
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "encdec")
-MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 class LMOutputs(NamedTuple):
@@ -61,14 +65,6 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise errors.InvalidArgError(
             f"unknown family {cfg.family!r} ({cfg.name}); known: {', '.join(PORTED_FAMILIES)}")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    if cfg.family not in MESH_FAMILIES:
-        raise errors.InvalidArgError(
-            f"the {cfg.family} family ({cfg.name}) on a mesh is not ported (ROADMAP A.10c): "
-            f"its constrain points are not written; families on a mesh: "
-            f"{', '.join(MESH_FAMILIES)}")
 
 
 def param_dict(tree: dict) -> nn.ParameterDict:
@@ -321,7 +317,8 @@ def _layer_body(layer: nn.Module, cfg: ModelConfig, h: torch.Tensor, positions: 
                 *, specs=None, impl: str = "cuda"):
     """One scan step of the full-sequence forward. Returns (h, aux)."""
     if cfg.family == "ssm":
-        mix, _ = ssm_mod.ssm_apply(layer["mixer"], cfg, L.rmsnorm(h, layer["norm1"]))
+        mix, _ = ssm_mod.ssm_apply(layer["mixer"], cfg,
+                                   L.rmsnorm(h, S.local_param(layer["norm1"])))
         return h + mix, torch.zeros((), dtype=torch.float32, device=h.device)
     if _moe_group_size(cfg) is not None:
         return _group_body(layer, cfg, h, positions, specs=specs, impl=impl)
@@ -368,10 +365,18 @@ def forward(
     if last_only:
         h = h[:, -1:, :]
     logits = _unembed(params, cfg, h)
-    if mesh is not None:
-        vocab = "vocab" if S.model_sharded(_unembed_weight(params, cfg)) else None
-        logits = S.as_dtensor(logits, mesh, "batch", "seq", vocab)
-    return LMOutputs(logits=logits, aux_loss=aux / cfg.num_layers)
+    return LMOutputs(logits=mesh_logits(logits, _unembed_weight(params, cfg), "seq"),
+                     aux_loss=aux / cfg.num_layers)
+
+
+def mesh_logits(logits: torch.Tensor, w, *dims: str):
+    """A rank's logits (batch, ``dims``, vocab) as the ``DTensor`` the
+    reference constrains them to (``"batch", ..., "vocab"``: split over
+    ``vocab`` where the unembedding ``w`` is); ``logits`` itself off a mesh."""
+    mesh = S.param_mesh(w)
+    if mesh is None:
+        return logits
+    return S.as_dtensor(logits, mesh, "batch", *dims, "vocab" if S.model_sharded(w) else None)
 
 
 def _unembed_weight(params: LM, cfg: ModelConfig):
@@ -379,17 +384,30 @@ def _unembed_weight(params: LM, cfg: ModelConfig):
 
 
 def _unembed(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """The padded-vocab logits of ``h`` in the activation dtype: this rank's
-    vocab columns where the weight is split over ``model`` (h's gradient
-    summed over it), all of them otherwise."""
-    w = _unembed_weight(params, cfg)
+    return unembed(_unembed_weight(params, cfg), cfg, h, tied=cfg.tie_embeddings)
+
+
+def unembed(w, cfg: ModelConfig, h: torch.Tensor, tied: bool = False) -> torch.Tensor:
+    """The padded-vocab logits of ``h`` by the unembedding ``w`` (d, Vpad), or
+    the embedding (Vpad, d) when ``tied``, in the activation dtype: this
+    rank's vocab columns where the weight is split over ``model`` (h's
+    gradient summed over it), all of them otherwise."""
     wl = S.local_param(w)
-    wl = wl.T if cfg.tie_embeddings else wl
+    wl = wl.T if tied else wl
     if not S.model_sharded(w):
         return L.mask_pad_logits(h @ wl.to(cfg.activation_dtype), cfg)
     mesh = w.device_mesh
     logits = S.sum_grad(h, mesh) @ wl.to(cfg.activation_dtype)
     return L.mask_pad_logits(logits, cfg, offset=S.axis_rank(mesh, "model") * wl.shape[1])
+
+
+def mesh_xent(logits, targets, w) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean cross-entropy, logz) of a mesh's ``DTensor`` logits over the global
+    batch: vocab-parallel where the unembedding ``w`` is split over ``model``."""
+    mesh = logits.device_mesh
+    ll, logz = token_terms(logits.to_local(), S.local_batch(targets, mesh),
+                           mesh if S.model_sharded(w) else None)
+    return -S.global_mean(ll, mesh), logz
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
@@ -447,10 +465,7 @@ def lm_loss(
         xent, logz = cross_entropy(out.logits, batch["targets"])
         zloss = torch.mean(torch.square(logz))
     else:
-        vp = S.model_sharded(_unembed_weight(params, cfg))
-        ll, logz = token_terms(out.logits.to_local(), S.local_batch(batch["targets"], mesh),
-                               mesh if vp else None)
-        xent = -S.global_mean(ll, mesh)
+        xent, logz = mesh_xent(out.logits, batch["targets"], _unembed_weight(params, cfg))
         zloss = S.global_mean(torch.square(logz), mesh)
     loss = xent + aux_weight * out.aux_loss + z_weight * zloss
     return loss, {"xent": xent, "aux": out.aux_loss, "zloss": zloss}
@@ -477,7 +492,8 @@ def ssm_layers_decode(layers, cfg: ModelConfig, h: torch.Tensor, ssd: torch.Tens
     Returns (h, new ssd, new conv), the states stacked."""
     new_ssd, new_conv = [], []
     for i, layer in enumerate(layers):
-        mix, ns = ssm_mod.ssm_decode_step(layer["mixer"], cfg, L.rmsnorm(h, layer["norm1"]),
+        mix, ns = ssm_mod.ssm_decode_step(layer["mixer"], cfg,
+                                          L.rmsnorm(h, S.local_param(layer["norm1"])),
                                           {"ssd": ssd[i], "conv": conv[i]})
         h = h + mix
         new_ssd.append(ns["ssd"])
@@ -500,12 +516,16 @@ def decode_step(
 
     ``state`` is not written: the step copies its KV caches once and writes
     this step's k/v into the copy, which the returned state holds; an SSM
-    step returns new state tensors.
+    step returns new state tensors. On a mesh (see the module's docstring)
+    ``state`` is a tree of ``DTensor``s, ``tokens`` / ``pos`` whole or split
+    over ``batch``; the logits come back split over ``vocab``, the state laid
+    out as it came.
     """
     check_family(cfg)
-    if S.param_mesh(params.embed) is not None:
-        raise errors.InvalidArgError(
-            "decode_step on a mesh is not ported: the reference serves one device")
+    mesh = S.param_mesh(params.embed)
+    if mesh is not None:
+        tokens, pos = S.local_batch(tokens, mesh), S.local_batch(pos, mesh)
+        whole, state = state, S.local_tree(state)
     h = params.embed_tokens(tokens, cfg)        # (B, 1, d)
     if cfg.family == "ssm":
         h, ssd, conv = ssm_layers_decode(params.layers, cfg, h, state["ssd"], state["conv"])
@@ -513,7 +533,9 @@ def decode_step(
     else:
         positions = pos[:, None]                # (B, 1) absolute
         ck, cv = state["k"].clone(), state["v"].clone()
-        caches = [{"k": ck[i], "v": cv[i], "pos": pos} for i in range(cfg.num_layers)]
+        seq = None if mesh is None else seq_mesh(whole["k"])
+        caches = [{"k": ck[i], "v": cv[i], "pos": pos, "seq_mesh": seq}
+                  for i in range(cfg.num_layers)]
         k = _moe_group_size(cfg)
         for g, layer in enumerate(params.layers):
             if k is not None:               # caches (L, ...) regrouped as (G, k, ...)
@@ -522,6 +544,16 @@ def decode_step(
             else:
                 h, _, _ = layer(cfg, h, positions, specs=specs, impl=impl, cache=caches[g])
         new_state = {"k": ck, "v": cv, "pos": state["pos"] + 1}
-    h = L.rmsnorm(h, params.final_norm)
-    logits = L.mask_pad_logits((h @ params.unembedding(cfg))[:, 0, :], cfg)
-    return logits, new_state
+    if mesh is None:
+        h = L.rmsnorm(h, params.final_norm)
+        logits = L.mask_pad_logits((h @ params.unembedding(cfg))[:, 0, :], cfg)
+        return logits, new_state
+    h = L.rmsnorm(h, S.local_param(params.final_norm))
+    logits = mesh_logits(_unembed(params, cfg, h)[:, 0, :], _unembed_weight(params, cfg))
+    return logits, S.tree_like(new_state, whole)
+
+
+def seq_mesh(cache):
+    """The mesh whose ``model`` axis splits a KV cache's sequence (dim 2 of the
+    stacked (L, B, S, Hkv, dh) ``DTensor``), or None."""
+    return cache.device_mesh if S.split_dim(cache) == 2 else None

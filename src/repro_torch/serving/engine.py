@@ -27,6 +27,11 @@ Telemetry: every degradation counter also lands on ``repro_torch.obs``
 under the reference's names (``repro.serving.*``, labeled per engine),
 each tick runs under an ``obs.span("serving.tick")``, and tick latency /
 queue depth feed histograms surfaced through :meth:`health`.
+
+A model on a mesh (``Model(cfg, mesh=)``) is served the same way, every
+rank running the same ticks: the decode state is ``DTensor``s, a slot's
+reset zeroes it on the rank that holds it, and each tick's logits are
+gathered whole before the argmax.
 """
 from __future__ import annotations
 
@@ -39,8 +44,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch import errors, obs
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import full_tensor, local_index
 
 from .decode import build_decode_fn
 
@@ -132,10 +140,14 @@ class ServingEngine:
             if isinstance(node, dict):
                 for child in node.values():
                     zero_slot(child)
-            elif node.ndim >= 2 and node.shape[1] == self.slots:
-                node[:, s] = 0
-            elif node.ndim >= 1 and node.shape[0] == self.slots:
-                node[s] = 0
+                return
+            dim = 1 if node.ndim >= 2 and node.shape[1] == self.slots else 0
+            if node.shape[dim] != self.slots:
+                return
+            at = local_index(node, dim, s)         # on a mesh: where this rank holds it
+            if at is not None:
+                local = node.to_local() if isinstance(node, DTensor) else node
+                local.select(dim, at).zero_()
 
         zero_slot(self.state)
 
@@ -224,6 +236,7 @@ class ServingEngine:
                 tokens[s] = self.next_token[s]
 
         logits, self.state = self._step_with_retry(tokens)
+        logits = full_tensor(logits)                # whole on every rank of a mesh
         self.pos = self.pos + 1
         picked = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # cblint: disable=CB211
 

@@ -25,8 +25,9 @@
 - a checkpoint saved at 2x2, restored at 2x2 (sharded like the example), at
   one rank and by ``repro.checkpoint``, bit-equal each way;
 - a one-rank mesh computes the local model's ops: losses and parameters
-  bit-equal; ``cb_linear_apply`` of a ``DTensor``; decode and the SSM,
-  hybrid and encoder-decoder families on a mesh raise;
+  bit-equal; ``cb_linear_apply`` of a ``DTensor``; ``expert_shard`` with a
+  mesh raises (the SSM, hybrid and encoder-decoder families and decoding on
+  a mesh are ``test_torch_mesh_families.py`` and ``test_torch_mesh_decode.py``);
 - ``python -m repro_torch.launch.train`` on 2 gloo ranks, then ``--resume``.
 
 The ranks are processes of ``tests/torch_dist_ranks.py`` (no JAX in them);
@@ -380,15 +381,21 @@ def test_cb_linear_apply_takes_a_dtensor(one_rank_mesh):
 
 
 def test_decode_and_odd_batches_on_a_mesh_raise(one_rank_mesh):
-    cfg = get_smoke_config("granite-8b")
-    model = Model(cfg, "cpu", mesh=one_rank_mesh)
-    params = model.init(torch.Generator().manual_seed(0))
-    state = Model(cfg, "cpu").init_decode_state(2, 8)
-    with pytest.raises(errors.InvalidArgError, match="decode"):
-        model.decode_step(params, state, torch.zeros((2, 1), dtype=torch.long),
-                          torch.zeros(2, dtype=torch.int32))
+    """A mesh with ``expert_shard`` raises; decoding on a mesh runs (it is
+    held to the JAX package in ``test_torch_mesh_decode.py``): on a one-rank
+    mesh it is the local model's decode, bit for bit."""
     with pytest.raises(errors.InvalidArgError, match="expert_shard"):
         Model(get_smoke_config("mixtral-8x7b"), "cpu", mesh=one_rank_mesh, expert_shard=(0, 2))
+    cfg = get_smoke_config("granite-8b").scaled(dtype="float32")
+    local = Model(cfg, "cpu")
+    params = local.init(torch.Generator().manual_seed(0))
+    model = Model(cfg, "cpu", mesh=one_rank_mesh)
+    sharded = model.shard(local.init(torch.Generator().manual_seed(0)))
+    tok, pos = torch.tensor([[3], [5]]), torch.zeros(2, dtype=torch.int32)
+    want, _ = local.decode_step(params, local.init_decode_state(2, 8), tok, pos)
+    got, state = model.decode_step(sharded, model.init_decode_state(2, 8), tok, pos)
+    assert torch.equal(S.full_tensor(got), want)
+    assert all(isinstance(v, torch.distributed.tensor.DTensor) for v in state.values())
 
 
 def test_a_live_state_restores_onto_a_mesh_with_shardings(one_rank_mesh, tmp_path):
@@ -409,16 +416,6 @@ def test_a_live_state_restores_onto_a_mesh_with_shardings(one_rank_mesh, tmp_pat
                                                             back.params.parameters()))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b", "whisper-small"])
-def test_families_not_yet_on_a_mesh_raise(arch):
-    standin = type("Mesh", (), {"mesh_dim_names": ("data", "model"), "shape": (1, 1)})()
-    with pytest.raises(errors.InvalidArgError, match="A.10c"):
-        Model(get_smoke_config(arch), "cpu", mesh=standin)
-    model = Model(get_smoke_config(arch), "cpu")
-    with pytest.raises(errors.InvalidArgError, match="A.10c"):
-        model.shard(model.init(torch.Generator().manual_seed(0)), standin)
-
-
 def test_routing_is_recorded_only_when_asked():
     cfg = get_smoke_config("mixtral-8x7b").scaled(dtype="float32")
     model = Model(cfg, "cpu")
@@ -436,14 +433,14 @@ def test_routing_is_recorded_only_when_asked():
 # the launcher on 2 gloo ranks
 # ---------------------------------------------------------------------------
 
-def _launch_ranks(tmp_path, tag, *args) -> list[subprocess.CompletedProcess]:
+def _launch_ranks(tmp_path, tag, *args, arch="cb-paper") -> list[subprocess.CompletedProcess]:
     env = dict(os.environ, PYTHONPATH=str(R.SRC), WORLD_SIZE="2", OMP_NUM_THREADS="1")
     store = (tmp_path / f"store_{tag}").resolve()
     procs = []
     for r in range(2):
         log = open(tmp_path / f"{tag}_rank{r}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "cb-paper", "--smoke",
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
              "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck"), "--init-method",
              f"file://{store}", *args], env=dict(env, RANK=str(r)), cwd=tmp_path,
             stdout=log, stderr=subprocess.STDOUT), log))
@@ -473,3 +470,15 @@ def test_launch_train_on_two_ranks_then_resume(tmp_path):
     assert "resumed from step 3" in out[0][1] and ck.list_steps() == [3, 5]
     final = [ln for ln in out[0][1].splitlines() if ln.startswith("final:")]
     assert final and "'step': 4" in final[0]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-small"])
+def test_launch_train_runs_the_ssm_and_encdec_families_on_two_ranks(tmp_path, arch):
+    """launch/train with WORLD_SIZE 2 trains mamba2 and whisper (its batches
+    with stub frames) on a (1, 2) mesh to the end; rank 0 reports."""
+    out = _launch_ranks(tmp_path, arch, "--steps", "2", arch=arch)
+    assert [rc for rc, _ in out] == [0, 0], out
+    lead = out[0][1]
+    assert f"mesh: {{'data': 1, 'model': 2}}  arch: {arch}" in lead and "(2 ranks)" in lead
+    final = [ln for ln in lead.splitlines() if ln.startswith("final:")]
+    assert final and "'step': 1" in final[0]

@@ -345,13 +345,14 @@ def test_launch_train_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     assert out.returncode == 0, out.stderr
     assert "mesh: {'data': 1, 'model': 1}  arch: cb-paper-smoke" in out.stdout
     assert "(one rank)" in out.stdout
-    # more than one rank (torchrun's WORLD_SIZE) trains on a mesh
-    # (tests/test_torch_mesh.py); a family whose constrain points are not
-    # written is refused there before the process group is joined
+    # more than one rank (torchrun's WORLD_SIZE) trains on a mesh, every family
+    # (tests/test_torch_mesh.py): an SSM config goes on to join the process
+    # group, here through env://, which finds no MASTER_ADDR
     from repro_torch.launch import train
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(errors.InvalidArgError, match="A.10c"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         train.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path / "two")])
     monkeypatch.delenv("WORLD_SIZE")

@@ -258,6 +258,11 @@ def train_steps(model, state, batch, steps=TRAIN_STEPS, routing=False):
     return losses, norms, counts, first
 
 
+def placement_names(t) -> list[str]:
+    """A ``DTensor``'s placements as "Shard(d)" / "Replicate()", in mesh order."""
+    return [f"Shard({p.dim})" if p.is_shard() else "Replicate()" for p in t.placements]
+
+
 def _mesh_train(world: int, shape, cases, grads_seed=None, ckpt_dir=None) -> dict:
     from torch.distributed.tensor import DTensor
 
@@ -274,14 +279,14 @@ def _mesh_train(world: int, shape, cases, grads_seed=None, ckpt_dir=None) -> dic
     for case in cases:
         cfg = mesh_config(case)
         model = Model(cfg, "cpu", mesh=mesh)
-        state = train_state_from_numpy(reference_state(case, model), "cpu", model=model)
-        batch = {k: torch.from_numpy(v) for k, v in np.load(case["batch"]).items()}
-        losses, norms, counts, first = train_steps(model, state, S.place_batch(batch, mesh),
-                                                   routing=cfg.family == "moe")
+        with S.axis_rules(mesh, case.get("rules")):   # the case's rules lay out its state
+            state = train_state_from_numpy(reference_state(case, model), "cpu", model=model)
+            batch = {k: torch.from_numpy(v) for k, v in np.load(case["batch"]).items()}
+            losses, norms, counts, first = train_steps(model, state,
+                                                       S.place_batch(batch, mesh),
+                                                       routing=cfg.family == "moe")
         res = dict(losses=losses, grad_norms=norms, routing=counts, first=first,
-                   placements={n: [f"Shard({p.dim})" if p.is_shard() else "Replicate()"
-                                   for p in t.placements]
-                               for n, t in state.params.named_parameters()},
+                   placements={n: placement_names(t) for n, t in state.params.named_parameters()},
                    state=train_state_to_numpy(state))
         if cfg.sparse_mlp:                       # each rank's copy of the replicated tiles
             res["tiles"] = [t.to_local().clone() for n, t in state.params.named_parameters()
@@ -343,6 +348,57 @@ def _sharded_grads(mesh, case: dict, seed: int) -> dict:
                 clipped=[S.full_tensor(t).clone() for t in clipped])
 
 
+def _mesh_decode(world: int, shape, cases) -> dict:
+    """Each case's prefill and teacher-forced decode steps on a (data, model)
+    mesh under ``rules_for``'s rules for its shapes, from the JAX package's
+    weights and decode state: the logits and the final state, gathered."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import Model
+    from repro_torch.models import sharding as S
+    from repro_torch.models.model import decode_state_from_numpy, params_from_numpy
+
+    mesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+    out = {}
+    for case in cases:
+        cfg = mesh_config(case)
+        model = Model(cfg, "cpu", mesh=mesh)
+        tree = unflat(dict(np.load(case["init"])))
+        data = dict(np.load(case["data"]))
+        B = data["tokens"].shape[0]
+        res = {}
+        prefill = ShapeConfig("prefill", "prefill", data["prompt"].shape[1], B)
+        rules = rules_for(cfg, prefill, mesh)
+        if B % shape[0]:                        # a batch of one: replicated, as at decode
+            rules["batch"] = None
+        with S.axis_rules(mesh, rules):
+            params = params_from_numpy(cfg, tree, "cpu", model=model)
+            kw = {k: torch.from_numpy(data[k]) for k in ("frames", "patch_embeds") if k in data}
+            with torch.no_grad():
+                logits = model.forward(params, torch.from_numpy(data["prompt"]),
+                                       last_only=True, **kw).logits
+            res["prefill"] = S.full_tensor(logits).clone()
+            res["prefill_placements"] = placement_names(logits)
+        decode = ShapeConfig("decode", "decode", case["max_len"], B)
+        with S.axis_rules(mesh, rules_for(cfg, decode, mesh)):
+            params = params_from_numpy(cfg, tree, "cpu", model=model)
+            state = decode_state_from_numpy(model, unflat(
+                {k[len("state/"):]: v for k, v in data.items() if k.startswith("state/")}),
+                "cpu")
+            res["state_placements"] = {k: placement_names(v) for k, v in flat(state).items()}
+            steps = []
+            for t in range(data["tokens"].shape[1]):
+                logits, state = model.decode_step(
+                    params, state, torch.from_numpy(data["tokens"][:, t:t + 1]),
+                    torch.from_numpy(data["pos"] + t))
+                steps.append(S.full_tensor(logits).clone())
+            res["decode"] = steps
+            res["logits_placements"] = placement_names(logits)
+            res["state"] = {k: S.full_tensor(v).clone() for k, v in flat(state).items()}
+        out[case["name"]] = res
+    return out
+
+
 def _tree_of_arrays(example):
     """A restore example from its JSON description: {name: [shape, dtype]} nested."""
     if isinstance(example, dict) and "shape" not in example:
@@ -351,7 +407,7 @@ def _tree_of_arrays(example):
 
 
 TASKS = {"spmv": _spmv, "compressed": _compressed, "pipeline": _pipeline,
-         "sharding": _sharding, "mesh_train": _mesh_train}
+         "sharding": _sharding, "mesh_train": _mesh_train, "mesh_decode": _mesh_decode}
 
 
 def rank_main(job_path: str, rank: int) -> None:
