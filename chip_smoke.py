@@ -233,10 +233,29 @@ the ``nvidia-smi`` line):
    than ``supports_shape``'s) and seconds.
 13. ``families`` — the MoE, SSM, hybrid and encoder-decoder families served
    through ``ServingEngine`` (a ``family`` line each; ``PERF.md`` section 4).
-14. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
+14. ``examples`` — the port's five examples (``examples_torch/``) and two
+   tools (``scripts/explain_torch.py``, ``scripts/obs_report_torch.py``), each
+   ``main([])`` run in-process at its own size on the card, in a temporary
+   working directory (``train_lm``'s checkpoints, ``obs_report``'s trace): the
+   launch counters zeroed before it and read after (``distributed_spmv``'s 8
+   gloo ranks report theirs), then its checks (``example_<name>``): quickstart
+   against the float64 oracle, ``impl="reference"`` and a bit-equal rerun;
+   solve_poisson's CG iterations equal to ``impl="reference"``'s and its
+   float64 residual; distributed_spmv's ranks, ``device_nnz``, imbalance and
+   y; serve_decode's 24 requests, tokens equal over two runs, launches a tick
+   held to ``decode_launches_per_step``; train_lm's falling loss, launches a
+   step held to ``train_launches_per_step``; obs_report's spans, counters,
+   timed plan and float64 residual; explain's schema and its roofline at
+   ``F32_FLOPS_PER_S`` / ``HBM_BYTES_PER_S``. Each SpMV kernel and the combine
+   at the example's streams, and spmm and the combine at serve_decode's (B 32,
+   N 8, X bfloat16) and train_lm's (B 64, N 2048, X float32) shapes, against
+   their plain versions (rows of the ``kernels`` line). An ``example`` line
+   each, then ``examples_phase`` with its seconds.
+15. ``kernels`` — per kernel: launches on the main paths (one ``cb_spmv`` call
    on each matrix, one ``cb_spmm`` call, the planned calls, the counted solver
    runs, one MLP training step, the first served run, the 6 trained steps,
-   every rank's first ``distributed_spmv`` call, the mesh runs' every rank, summed;
+   every rank's first ``distributed_spmv`` call, the mesh runs' every rank, the
+   examples' runs, summed;
    ``launches_per_call``
    has them apart, keyed by the counted run, the solver runs per iteration, the
    served run per tick, the training run per step, a dist run over its ranks),
@@ -248,7 +267,7 @@ the ``nvidia-smi`` line):
    the spmm kernel's 3xTF32 tensor-core products at B > 32; the combine's
    bytes are those of any deterministic combine, ``combine_bytes``), and a
    library call's time where one computes the same function.
-15. the ``nvidia-smi`` name and power limit, then the verdict line.
+16. the ``nvidia-smi`` name and power limit, then the verdict line.
 
 Any failed check, a missing GPU, a build error or a launch error ends the
 run with a non-zero exit code and no ``"ok": true`` line. Times are taken
@@ -268,15 +287,19 @@ speaks of the full-size run.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
+import contextlib
 import copy
 import dataclasses
 import faulthandler
 import hashlib
+import importlib.util
 import inspect
 import json
 import math
 import multiprocessing
+import multiprocessing.forkserver
 import pathlib
 import statistics
 import subprocess
@@ -325,6 +348,8 @@ from repro_torch.training import (  # noqa: E402
     OPTIMIZERS, TrainLoopConfig, TrainState, build_train_step, run_training, warmup_cosine,
 )
 from repro_torch.training.optimizer import global_norm  # noqa: E402
+
+from examples_torch import ENTRY_POINTS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
@@ -392,6 +417,16 @@ KERNEL_INFO = {
     "spmm": ("src/repro_torch/kernels/csrc/cb_spmm.cu",
              "src/repro/kernels/cb_spmm.py:71"),
 }
+# every process this script starts is forked from one server that has imported this
+# script's modules once, where "spawn" imported them again in every rank and worker
+# (15-30 s a group of ranks on an H100 host). The preload is named: the server skips
+# "__main__" (Python 3.12 passes the main path under a key it does not read). The
+# server touches no card, so each rank starts CUDA on its own
+MP = multiprocessing.get_context("forkserver")
+MP.set_forkserver_preload(["chip_smoke"])
+# on the way out (a failed run's too), stop the server and wait for it: left to
+# itself it outlives this process while its imports unwind
+atexit.register(multiprocessing.forkserver._forkserver._stop)
 worst_err = {k: 0.0 for k in WRAPPERS}       # max abs error vs plain, all comparisons
 worst_rel = {k: 0.0 for k in WRAPPERS}
 
@@ -1027,7 +1062,6 @@ def run_dist(inputs, seed, launches, dist_launches, runs=DIST_RUNS) -> None:
     """``shard_streams`` of the spmv lines' banded and power-law matrices at each D,
     then ``distributed_spmv`` on D spawned ranks, each line checked and timed."""
     t_phase = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         for D, backend, combines in runs:
@@ -1052,7 +1086,7 @@ def run_dist(inputs, seed, launches, dist_launches, runs=DIST_RUNS) -> None:
             job = dict(world=D, backend=backend, combines=list(combines),
                        store=str(tmp / f"store-D{D}"), out=str(tmp),
                        matrices={n: str(tmp / f"{n}-D{D}.pt") for n in DIST_MATRICES})
-            procs = [ctx.Process(target=dist_rank, args=(r, job)) for r in range(D)]
+            procs = [MP.Process(target=dist_rank, args=(r, job)) for r in range(D)]
             t0 = time.perf_counter()
             for p in procs:
                 p.start()
@@ -2200,8 +2234,7 @@ def spawn_ranks(job: dict, tmp: pathlib.Path, target=None, stem=None) -> list[di
     must end within ``MESH_TIMEOUT`` with exit code 0, or the phase fails."""
     target = mesh_rank if target is None else target
     stem = f"mesh-{job['world']}" if stem is None else stem
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, job)) for r in range(job["world"])]
+    procs = [MP.Process(target=target, args=(r, job)) for r in range(job["world"])]
     for p in procs:
         p.start()
     deadline = time.monotonic() + MESH_TIMEOUT
@@ -2684,8 +2717,7 @@ def dryrun_cells(jobs: list) -> dict:
     a fresh process a cell spends more in imports than in counting)."""
     order = {"train": 0, "prefill": 1, "decode": 2}
     jobs = sorted(jobs, key=lambda j: order[SHAPES[j[1]].kind])
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(DRYRUN_WORKERS, len(jobs))) as pool:
+    with MP.Pool(min(DRYRUN_WORKERS, len(jobs))) as pool:
         return dict(zip(jobs, pool.map(dryrun_cell, jobs, chunksize=1)))
 
 
@@ -3631,6 +3663,221 @@ def run_solve(seed, launches, solver_launches):
                solver_launches, launches)
 
 
+# ---------------------------------------------------------------------------
+# the examples phase: the port's five examples and two tools, at their own sizes
+# ---------------------------------------------------------------------------
+
+EXAMPLE_DIST_REDUCED = ("8 host devices -> 8 gloo ranks sharing cuda:0 (NCCL refuses two ranks "
+                        "on one card): the shards' time on one card, not 8 cards'")
+
+
+def load_example(path: str):
+    """An example's or tool's module, loaded from its file under its dotted
+    path (``examples_torch.distributed_spmv``), the name by which the ranks
+    ``distributed_spmv`` starts import their target."""
+    name = path.removesuffix(".py").replace("/", ".")
+    spec = importlib.util.spec_from_file_location(
+        name, pathlib.Path(__file__).resolve().parent / path)
+    mod = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_quickstart(mod, out, per_kernel, counted) -> dict:
+    s, x = out["streams"], torch.from_numpy(out["x"]).to(DEV)
+    rel = oracle_check("example quickstart", *out["coo"], (out["m"], out["n"]), out["x"],
+                       out["y"])
+    ref = ops.cb_spmv(s, x, impl="reference")
+    ref_err = (out["y"] - ref).abs().max().item()
+    if ref_err > KERNEL_TOL * max(1.0, ref.abs().max().item()):
+        fail(f"example quickstart: impl='cuda' vs 'reference' differ by {ref_err:.3e}")
+    if not torch.equal(mod.main([])["y"], out["y"]):
+        fail("example quickstart: a rerun is not bit-equal")
+    check_shard_kernels("example quickstart", s, x)
+    return dict(stats={k: out["stats"][k] for k in ("num_blocks", "fmt_coo", "fmt_csr",
+                                                     "fmt_dense", "tb_load_imbalance")},
+                err_vs_oracle=out["err_vs_oracle"], err_vs_oracle_rel=rel,
+                err_vs_reference=ref_err, rerun_bit_equal=True)
+
+
+def example_solve_poisson(mod, out, per_kernel, counted) -> dict:
+    op, M, b = out["operator"], out["preconditioner"], out["b"]
+    ref = solvers.cg(op, b, M, tol=1e-6, maxiter=500, impl="reference")
+    if int(ref.iterations) != out["iterations"] or not out["converged"]:
+        fail(f"example solve_poisson: {out['iterations']} iterations (converged "
+             f"{out['converged']}), impl='reference' {int(ref.iterations)}")
+    rows, cols, vals, shape = mod.poisson_2d(out["g"])
+    A64 = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=shape)
+    res64 = residual64(A64, torch.from_numpy(out["x"]), b.cpu().numpy())
+    if res64 > RESIDUAL_TOL:
+        fail(f"example solve_poisson: float64 residual {res64:.3e} > {RESIDUAL_TOL}")
+    check_shard_kernels("example solve_poisson", op.streams, b)
+    return dict(iterations=out["iterations"], reference_iterations=int(ref.iterations),
+                residual64=res64, relative_error=out["relative_error"],
+                preprocess_s=out["preprocess_s"], solve_ms=out["solve_s"] * 1e3,
+                iter_us=out["iter_s"] * 1e6,
+                amortization={str(k): v for k, v in out["amortization"].items()})
+
+
+def example_distributed_spmv(mod, out, per_kernel, counted) -> dict:
+    for k, c in out["rank_launches"].items():
+        counted[k] += c
+    (rows, cols, vals), cb, x_np = mod.build_matrix()
+    if out["ranks"] != 8 or not out["one_card"] or not out["ranks_agree"]:
+        fail(f"example distributed_spmv: ranks {out['ranks']}, one card {out['one_card']}, "
+             f"ranks agree {out['ranks_agree']}")
+    if sum(out["device_nnz"]) != cb.nnz or out["load_imbalance"] > 1.01:
+        fail(f"example distributed_spmv: nnz per rank {out['device_nnz']}, imbalance "
+             f"{out['load_imbalance']}")
+    for k in ("panel", "coo", "combine"):
+        if out["rank_launches"][k] < out["ranks"]:
+            fail(f"example distributed_spmv: {k} launched {out['rank_launches'][k]} times "
+                 f"over {out['ranks']} ranks")
+    rel = oracle_check("example distributed_spmv", rows, cols, vals, cb.shape, x_np,
+                       torch.from_numpy(out["y"]))
+    sh = shard_streams(cb, out["ranks"])
+    check_shard_kernels("example distributed_spmv rank 0", sh.local(0, DEV),
+                        torch.from_numpy(x_np).to(DEV))
+    return dict(ranks=out["ranks"], backend=out["backend"], one_card=True,
+                device_nnz=out["device_nnz"], load_imbalance=out["load_imbalance"],
+                err_vs_oracle=out["err_vs_oracle"], err_vs_oracle_rel=rel,
+                rank_launches=out["rank_launches"])
+
+
+def example_serve_decode(mod, out, per_kernel, counted) -> dict:
+    if out["served"] != out["requests"]:
+        fail(f"example serve_decode: {out['served']} of {out['requests']} requests served")
+    if mod.main([])["generated"] != out["generated"]:
+        fail("example serve_decode: two runs generated different tokens")
+    cfg = mod.build_config()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    per_tick = decode_launches_per_step(model)
+    for k in ("spmm", "combine"):
+        if counted[k] != per_tick[k] * out["ticks"]:
+            fail(f"example serve_decode: {counted[k]} {k} launches in {out['ticks']} ticks, "
+                 f"the code's count {per_tick[k]} a tick")
+    # the kernels at the decode shape: N = slots, X in the activation dtype
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    N = out["slots"]
+    x = torch.randn((N, cfg.d_model), generator=gen, device=DEV).to(cfg.activation_dtype)
+    h = torch.randn((N, cfg.d_ff), generator=gen, device=DEV).to(cfg.activation_dtype)
+    for name, inp in (("gate", x), ("down", h)):
+        spec = model.specs[name]
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        spmm_rows(f"serve_decode {name}", "example serve_decode tick",
+                  params.layers[0].ffn[name].detach(), mm.fwd.route.bcol,
+                  ops.x_blocks(inp.T, spec.nb, spec.block_size), mm.fwd.route,
+                  spec.out_features, per_tick, per_kernel)
+    return dict(served=out["served"], requests=out["requests"], tokens=out["tokens"],
+                ticks=out["ticks"], tokens_per_s=out["tokens_per_s"], serve_s=out["serve_s"],
+                block_size=cfg.sparse_block, slots=N, activations=cfg.dtype,
+                launches_per_tick=per_tick, runs_bit_equal=True)
+
+
+def example_train_lm(mod, out, per_kernel, counted) -> dict:
+    if not out["learning"]:
+        fail(f"example train_lm: loss {out['losses']} did not fall")
+    cfg = mod.build_config(sparse=True)
+    model = Model(cfg)
+    per_step = train_launches_per_step(model)
+    for k in ("spmm", "combine"):
+        if counted[k] != per_step[k] * out["steps"]:
+            fail(f"example train_lm: {counted[k]} {k} launches in {out['steps']} steps, the "
+                 f"code's count {per_step[k]} a step")
+    # the kernels at the training forward's shape: N = batch x seq, X float32
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    N = out["batch"] * out["seq"]
+    x = torch.randn((N, cfg.d_model), generator=gen, device=DEV).to(cfg.activation_dtype)
+    h = torch.randn((N, cfg.d_ff), generator=gen, device=DEV).to(cfg.activation_dtype)
+    for name, inp in (("gate", x), ("down", h)):
+        spec = model.specs[name]
+        mm = sparse_linear._Matmul(spec, "cuda", None, DEV)
+        spmm_rows(f"train_lm {name}", "example train_lm step",
+                  params.layers[0].ffn[name].detach(), mm.fwd.route.bcol,
+                  ops.x_blocks(inp.T, spec.nb, spec.block_size), mm.fwd.route,
+                  spec.out_features, per_step, per_kernel)
+    return dict(params=out["params"], steps=out["steps"], batch=out["batch"], seq=out["seq"],
+                losses=out["losses"], loss_improved=out["loss_improved"], learning=True,
+                step_s=statistics.median(h["step_time_s"] for h in out["history"][1:]),
+                checkpoint_step=out["checkpoint_step"], block_size=cfg.sparse_block,
+                launches_per_step=per_step)
+
+
+def example_obs_report(mod, out, per_kernel, counted) -> dict:
+    names = {ev["name"] for ev in out["trace"]["traceEvents"]}
+    solver = out["solve"]["solver"]
+    if not {"robust_solve", f"solve:{solver}", "serving.tick"} <= names:
+        fail(f"example obs_report: spans {sorted(names)}")
+    if not all(ev["ph"] == "X" and ev["dur"] >= 0 for ev in out["trace"]["traceEvents"]):
+        fail("example obs_report: a trace event is not a complete span")
+    snap = out["snapshot"]
+    spmv_calls = {tuple(sorted(s["labels"].items())): s["value"]
+                  for s in snap["repro.ops.spmv.calls"]["series"]}
+    outcome = snap["repro.solvers.robust.outcome"]["series"]
+    completed = snap["repro.serving.completed"]["series"][0]["value"]
+    if not spmv_calls.get((("impl", "cuda"),)) or outcome[0]["labels"]["outcome"] != "converged" \
+            or completed != 2 or not out["solve"]["converged"]:
+        fail(f"example obs_report: spmv calls {spmv_calls}, outcome {outcome}, "
+             f"completed {completed}")
+    op = out["operator"]
+    if op.plan.mode != "timed":
+        fail(f"example obs_report: plan='auto' on the card searched in mode {op.plan.mode!r}")
+    r, c, v = matrices.spd_banded(96, bandwidth=7, seed=3)
+    A64 = scipy.sparse.csr_matrix((v.astype(np.float32).astype(np.float64), (r, c)),
+                                  shape=(96, 96))
+    b = np.random.default_rng(0).standard_normal(96).astype(np.float32)
+    res64 = residual64(A64, out["solve"]["x"], b)
+    if res64 > RESIDUAL_TOL:
+        fail(f"example obs_report: float64 residual {res64:.3e} > {RESIDUAL_TOL}")
+    check_shard_kernels("example obs_report", op.streams, torch.from_numpy(b).to(DEV))
+    return dict(spans=sorted(names), events=len(out["trace"]["traceEvents"]), solver=solver,
+                attempts=out["solve"]["attempts"], residual64=res64, plan_mode=op.plan.mode,
+                plan_block_size=op.plan.block_size, spmv_calls=spmv_calls[(("impl", "cuda"),)],
+                ticks=out["health"]["ticks"], completed=completed,
+                locality_bytes_moved=out["locality"]["bytes_moved"])
+
+
+def example_explain(mod, out, per_kernel, counted) -> dict:
+    roof = out["roofline"]
+    if out["schema"] != "cb-explain/v1" or {"cb", "csr", "bsr", "tile"} - set(out["locality"]):
+        fail(f"example explain: schema {out['schema']}, locality {sorted(out['locality'])}")
+    if roof["machine_balance"] != F32_FLOPS_PER_S / HBM_BYTES_PER_S or roof["bound"] != "memory":
+        fail(f"example explain: machine balance {roof['machine_balance']}, bound {roof['bound']}")
+    return dict(matrix=out["matrix"], plan_block_size=out["plan"]["block_size"],
+                roofline=roof, decision=len(out["decision"]),
+                bytes_moved={k: st["bytes_moved"] for k, st in out["locality"].items()})
+
+
+def run_examples(per_kernel, launches, example_launches) -> None:
+    """Each example's and tool's ``main([])`` in-process on the card: the launch
+    counters zeroed before it and read after, its output checked, the kernels
+    held against their plain versions at its shapes."""
+    t_phase = time.perf_counter()
+    for name, path in ENTRY_POINTS.items():
+        mod = load_example(path)
+        check = globals()[f"example_{name}"]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            for w in WRAPPERS.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mod.main([])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counted = {k: w.launches for k, w in WRAPPERS.items()}
+            fields = check(mod, out, per_kernel, counted)
+        for k, c in counted.items():
+            launches[k] += c
+            if c:
+                example_launches.setdefault(k, {})[f"example {name}"] = c
+        emit("example", name=name, path=path, argv=[], seconds=seconds, launches=counted,
+             reduced=EXAMPLE_DIST_REDUCED if name == "distributed_spmv" else None, **fields)
+    emit("examples_phase", seconds=time.perf_counter() - t_phase, scripts=len(ENTRY_POINTS),
+         nvidia_smi=smi())
+
+
 def main() -> None:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -3694,6 +3941,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_dryrun(train_line, serve_line)
     run_families(args.seed)
+    torch.cuda.empty_cache()
+    example_launches = {}                       # kernel -> {example: launches}
+    run_examples(per_kernel, launches, example_launches)
 
     kernels = []
     for k in WRAPPERS:
@@ -3709,7 +3959,7 @@ def main() -> None:
             library_ms=head["library_ms"], library=head["library"],
             launches_per_call={r["run"]: r["launches"] for r in per_kernel[k]}
             | solver_launches.get(k, {}) | dist_launches.get(k, {})
-            | mesh_launches.get(k, {}),
+            | mesh_launches.get(k, {}) | example_launches.get(k, {}),
             at=head["matrix"], shape=head["shape"],
             per_matrix=per_kernel[k]))
     print(json.dumps({"kernels": kernels}), flush=True)

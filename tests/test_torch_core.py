@@ -7,7 +7,9 @@ saved files and their sha256), because stream parity and artefact exchange
 between the two packages rest on it.
 """
 import ast
+import importlib.util
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -343,12 +345,18 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PACKAGE_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+if str(REPO) not in sys.path:            # examples_torch: the port's entry points
+    sys.path.insert(0, str(REPO))
+from examples_torch import ENTRY_POINTS  # noqa: E402
+PORT_FILES = PACKAGE_FILES + [REPO / "chip_smoke.py"] + sorted(
+    (REPO / "examples_torch").glob("*.py")) + [REPO / "scripts" / "explain_torch.py",
+                                               REPO / "scripts" / "obs_report_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_imports_neither_jax_nor_repro(path):
-    banned = {"jax", "jaxlib", "repro", "flax", "optax"} & _imported_roots(path)
+    banned = {"jax", "jaxlib", "repro", "flax", "optax", "benchmarks"} & _imported_roots(path)
     assert not banned, f"{path} imports {sorted(banned)}"
 
 
@@ -361,7 +369,7 @@ def test_card_tests_import_neither_jax_nor_repro():
 
 
 def test_port_has_every_module_of_the_slice():
-    have = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    have = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PACKAGE_FILES}
     for mod in ("errors.py", "core/formats.py", "core/blocking.py", "core/column_agg.py",
                 "core/aggregation.py", "core/balance.py", "core/cb_matrix.py",
                 "core/spmv_ref.py", "core/streams.py", "data/matrices.py",
@@ -389,6 +397,10 @@ def test_port_has_every_module_of_the_slice():
     for src in ("cb_block_dense.cu", "cb_colagg.cu", "cb_coo.cu", "cb_combine.cu",
                 "cb_common.cuh"):
         assert (csrc / src).is_file(), src
+    assert {p.name for p in (REPO / "examples").glob("*.py")} == \
+        {pathlib.Path(f).name for f in ENTRY_POINTS.values() if f.startswith("examples_torch")}
+    for path in ENTRY_POINTS.values():
+        assert (REPO / path).is_file(), path
 
 
 def test_cuda_request_without_a_card_raises():
@@ -407,6 +419,23 @@ def test_cuda_request_without_a_card_raises():
             call()
         assert ei.value.code == terrors.DEVICE_UNAVAILABLE
     assert tstreams.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_each_example_and_tool_raises_without_a_card(name, tmp_path, monkeypatch):
+    """Every example and tool runs on CUDA by default: with no card and no
+    ``--device cpu`` it raises the typed error before doing any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    monkeypatch.chdir(tmp_path)                 # train_lm's checkpoints, obs_report's trace
+    path = REPO / ENTRY_POINTS[name]
+    spec = importlib.util.spec_from_file_location(f"_entry_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(terrors.DeviceUnavailableError) as ei:
+        mod.main([])
+    assert ei.value.code == terrors.DEVICE_UNAVAILABLE
+    assert not list(tmp_path.iterdir())
 
 
 def test_a_call_runs_on_the_very_device_its_streams_live_on(monkeypatch):
