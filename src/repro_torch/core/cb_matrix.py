@@ -12,6 +12,10 @@ Conversion pipeline (COO input -> CB structure), exactly the paper's flow:
 The resulting object holds the high-level block-COO metadata in *balanced
 slot order* plus the single packed byte buffer — the faithful portable
 format. Kernel-facing typed streams are derived by core/streams.py.
+
+``from_coo`` runs under the ``obs`` span ``cb.from_coo``, each step under a
+child span: ``cb.partition`` (steps 1-2; twice where column aggregation
+applies), ``cb.colagg`` (3), ``cb.formats`` (4-5) and ``cb.balance`` (6).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import zlib
 
 import numpy as np
 
-from repro_torch import errors
+from repro_torch import errors, obs
 
 from . import aggregation, balance, blocking, column_agg, formats
 
@@ -120,42 +124,50 @@ class CBMatrix:
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         vals = np.asarray(vals, dtype=val_dtype)
-        vals = _nonfinite_policy(vals, nonfinite, "CBMatrix.from_coo")
+        with obs.span("cb.from_coo", nnz=int(vals.size)) as sp:
+            vals = _nonfinite_policy(vals, nonfinite, "CBMatrix.from_coo")
 
-        # (1)+(2): probe partition to decide column aggregation (th0 gate).
-        probe = blocking.partition_coo(rows, cols, vals, shape, block_size)
-        if use_column_aggregation == "auto":
-            apply_agg = formats.should_column_aggregate(
-                probe.nnz_per_blk, block_size, thresholds
-            )
-        else:
-            apply_agg = bool(use_column_aggregation)
+            # (1)+(2): probe partition to decide column aggregation (th0 gate).
+            with obs.span("cb.partition", nnz=int(vals.size)):
+                probe = blocking.partition_coo(rows, cols, vals, shape, block_size)
+            if use_column_aggregation == "auto":
+                apply_agg = formats.should_column_aggregate(
+                    probe.nnz_per_blk, block_size, thresholds
+                )
+            else:
+                apply_agg = bool(use_column_aggregation)
 
-        # (3): panel-level column compaction.
-        if apply_agg:
-            agg = column_agg.column_aggregate(rows, cols, shape, block_size)
-            part = blocking.partition_coo(rows, agg.new_cols, vals, shape, block_size)
-        else:
-            agg = column_agg.identity_aggregation(cols, shape, block_size)
-            part = probe
+            # (3): panel-level column compaction.
+            with obs.span("cb.colagg", colagg=bool(apply_agg)):
+                if apply_agg:
+                    agg = column_agg.column_aggregate(rows, cols, shape, block_size)
+                else:
+                    agg = column_agg.identity_aggregation(cols, shape, block_size)
+            if apply_agg:
+                with obs.span("cb.partition", nnz=int(vals.size)):
+                    part = blocking.partition_coo(rows, agg.new_cols, vals, shape, block_size)
+            else:
+                part = probe
 
-        # (4): per-block format selection.
-        fmts = formats.select_formats(part.nnz_per_blk, block_size, thresholds)
+            # (4): per-block format selection.
+            # (5): intra-block aggregation into the flat buffer + VPs.
+            with obs.span("cb.formats", blocks=part.num_blocks):
+                fmts = formats.select_formats(part.nnz_per_blk, block_size, thresholds)
+                packed = aggregation.aggregate_partition(fmts, part, val_dtype)
 
-        # (5): intra-block aggregation into the flat buffer + VPs.
-        packed = aggregation.aggregate_partition(fmts, part, val_dtype)
-
-        # (6): inter-TB load balance (Alg. 2) and metadata permutation.
-        bal = balance.tb_load_balance(part.nnz_per_blk, warps_per_tb)
-        brow, bcol, nnzb, typb, vps = balance.apply_balance(
-            bal,
-            part.blk_row_idx,
-            part.blk_col_idx,
-            part.nnz_per_blk,
-            fmts,
-            packed.vp_per_blk,
-            pad_values=(0, 0, 0, formats.FMT_COO, 0),
-        )
+            # (6): inter-TB load balance (Alg. 2) and metadata permutation.
+            with obs.span("cb.balance", blocks=part.num_blocks):
+                bal = balance.tb_load_balance(part.nnz_per_blk, warps_per_tb)
+                brow, bcol, nnzb, typb, vps = balance.apply_balance(
+                    bal,
+                    part.blk_row_idx,
+                    part.blk_col_idx,
+                    part.nnz_per_blk,
+                    fmts,
+                    packed.vp_per_blk,
+                    pad_values=(0, 0, 0, formats.FMT_COO, 0),
+                )
+            sp.set(blocks=part.num_blocks, colagg=bool(apply_agg))
 
         return cls(
             shape=tuple(shape),

@@ -45,6 +45,9 @@ streams of the two packages can be diffed. The packing code is host-side
 numpy and hold no Python loop over blocks; the only per-block loop left
 is the heap of ``balance._heap_assign``. Array fields are
 ``torch.Tensor``; ``.to(device)`` moves a whole stream.
+
+``build_super_streams`` runs under the ``obs`` span ``streams.build_super``
+and a stream's ``.to()`` under ``streams.to``.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import errors
+from repro_torch import errors, obs
 
 from . import balance as balance_mod
 from . import column_agg as column_agg_mod
@@ -172,11 +175,12 @@ class _StreamOps:
         """
         dev = resolve_device(device)
         moved = {}
-        for name in _STREAM_FIELDS:
-            t = getattr(self, name)
-            if payload_dtype is not None and name in _PAYLOAD_FIELDS:
-                t = t.to(payload_dtype)
-            moved[name] = t.to(dev)
+        with obs.span("streams.to"):
+            for name in _STREAM_FIELDS:
+                t = getattr(self, name)
+                if payload_dtype is not None and name in _PAYLOAD_FIELDS:
+                    t = t.to(payload_dtype)
+                moved[name] = t.to(dev)
         return dataclasses.replace(self, **moved)
 
     @property
@@ -623,12 +627,17 @@ def build_super_streams(
     payload every group stores — is as small and as equal as the block
     mix allows. The tensors live on the CPU until ``.to(device)``.
     """
-    B = cb.block_size
-    vdt = cb.val_dtype
-    G = group_size_for(B) if group_size is None else int(group_size)
+    G = group_size_for(cb.block_size) if group_size is None else int(group_size)
     if G < 1:
         raise errors.InvalidArgError(f"group_size must be >= 1, got {G}")
+    with obs.span("streams.build_super", blocks=cb.num_blocks, group_size=G):
+        return _pack_super_streams(cb, G)
 
+
+def _pack_super_streams(cb: CBMatrix, G: int) -> SuperBlockStreams:
+    """``build_super_streams``'s packing at group size ``G``."""
+    B = cb.block_size
+    vdt = cb.val_dtype
     (d_brow_b, d_tiles_b, d_xidx_b, d_load), \
         (pl, p_blk, p_row, p_lane, p_val), (cl, c_code, c_val) = _collect_blocks(cb)
 

@@ -30,7 +30,12 @@ version (how the CPU tests exercise this module).
 After a successful dispatch each entry point records its launch
 accounting (``repro.ops.{spmv,spmv_into,spmm}.*``, the JAX package's
 metric names) in ``repro_torch.obs``; with obs disabled that is one
-boolean check, and results are bit-identical either way.
+boolean check, and results are bit-identical either way. ``cb_spmv`` and
+``cb_spmv_into`` count every kernel a call launches, beyond the JAX
+package's series: ``launches{format=gather}`` (one x gather per present
+format), ``{format=combine}`` (the combine's passes) and, for ``cb_spmv``,
+``{format=fill}`` (y's zero-fill). Each runs under one ``obs`` span of its
+own name, which a recording ``torch.profiler`` also sees.
 """
 from __future__ import annotations
 
@@ -152,7 +157,7 @@ def spmv_launch_stats(
     arithmetic without building anything — tested equal to the
     actually-regrouped stream. ``launches`` counts the per-format kernel
     launches the batched engine makes: one per non-empty format (the
-    combine's launches are counted on its own wrapper).
+    gathers, the combine and y's fill are ``_engine_launches``).
     """
     B = streams.block_size
     if isinstance(streams, SuperBlockStreams):
@@ -195,7 +200,18 @@ class _Prepared:
     brow: torch.Tensor                          # (T,) int32, dense|panel|coo slots
     combine: cb_combine.CombinePlan | None      # fixed summation order (CUDA only)
     stats: dict                                 # spmv_launch_stats, for _record_call
+    engine: dict                                # entry -> launches beside the format kernels
     records: dict = dataclasses.field(default_factory=dict)   # _record_call's batches
+
+
+def _engine_launches(stats: dict, combine, num_slots: int, m: int) -> dict:
+    """The kernels a call launches beside its format kernels, per entry point:
+    one x gather per present format, the combine's passes (the CUDA plan's, or
+    the one ``index_add_`` of the CPU path) and, for ``cb_spmv``, y's fill."""
+    gather = sum(stats["launches"].values())
+    passes = len(combine.passes) if combine is not None else int(num_slots > 0)
+    into = {"gather": gather, "combine": passes}
+    return {"spmv": dict(into, fill=int(m > 0)), "spmv_into": into}
 
 
 def _prepare(streams, group_size) -> _Prepared:
@@ -213,8 +229,9 @@ def _prepare(streams, group_size) -> _Prepared:
                           sup.coo_brow.reshape(-1)])
         plan = (cb_combine.plan_combine(brow, brow.device)
                 if brow.device.type == "cuda" and brow.numel() else None)
-        cache[key] = _Prepared(sup=sup, brow=brow, combine=plan,
-                               stats=spmv_launch_stats(streams, key))
+        stats = spmv_launch_stats(streams, key)
+        cache[key] = _Prepared(sup=sup, brow=brow, combine=plan, stats=stats,
+                               engine=_engine_launches(stats, plan, brow.numel(), sup.m))
     return cache[key]
 
 
@@ -281,13 +298,15 @@ def _check_impl_device(streams, impl, device) -> None:
             f"move them first with streams.to({str(dev)!r})")
 
 
-def _call_batch(entry: str, stats: dict | None, impl: str, plan) -> obs.Batch:
+def _call_batch(entry: str, stats: dict | None, impl: str, plan,
+                engine: dict | None = None) -> obs.Batch:
     """One call's launch accounting, as registry updates.
 
     Every call counts ``calls{impl}``; only the CUDA engine launches kernels,
-    so ``launches`` / ``steps`` / ``padded_elems`` per format and the
-    ``group_size`` gauge are recorded for ``impl="cuda"`` alone (the JAX
-    package records them for ``"pallas"``). With a plan carrying a
+    so ``launches`` / ``steps`` / ``padded_elems`` per format are recorded
+    for ``impl="cuda"`` alone (the JAX package records them for
+    ``"pallas"``), and ``engine``'s launches beside the format kernels
+    (``_engine_launches``) as more ``launches`` series. With a plan carrying a
     ``structure_hash`` an SpMV also records the ``repro.autotune.exec.*``
     measured-vs-predicted pair: both sides accumulate once per call, so their
     ratio is the cost model's per-call fidelity.
@@ -300,7 +319,9 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan) -> obs.Batch:
             batch.inc(f"repro.ops.{entry}.launches", stats["launches"][fmt], format=fmt)
             batch.inc(f"repro.ops.{entry}.steps", n, format=fmt)
             batch.inc(f"repro.ops.{entry}.padded_elems", stats["padded"][fmt], format=fmt)
-    batch.set(f"repro.ops.{entry}.group_size", stats["group_size"])
+    for kind, n in (engine or {}).items():
+        if n:
+            batch.inc(f"repro.ops.{entry}.launches", n, format=kind)
     label = getattr(plan, "structure_hash", None)
     if label is not None and entry in ("spmv", "spmv_into"):
         label = label[:12]
@@ -314,7 +335,7 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan) -> obs.Batch:
 
 
 def _record_call(entry: str, stats: dict | None, impl: str, plan,
-                 cache: dict | None = None) -> None:
+                 cache: dict | None = None, engine: dict | None = None) -> None:
     """Emit one call's launch accounting (``_call_batch``) to the default registry.
 
     Runs on the host after a successful dispatch and reads shape metadata
@@ -325,13 +346,13 @@ def _record_call(entry: str, stats: dict | None, impl: str, plan,
     per instrument.
     """
     if cache is None:
-        _call_batch(entry, stats, impl, plan).record()
+        _call_batch(entry, stats, impl, plan, engine).record()
         return
     key = (entry, impl, getattr(plan, "structure_hash", None),
            getattr(plan, "predicted_padded_elems", None), getattr(plan, "predicted_steps", None))
     batch = cache.get(key)
     if batch is None:
-        batch = cache[key] = _call_batch(entry, stats, impl, plan)
+        batch = cache[key] = _call_batch(entry, stats, impl, plan, engine)
     batch.record()
 
 
@@ -380,17 +401,19 @@ def cb_spmv(
     launch accounting are derived on the first call and cached on the
     stream object. Two calls with the same inputs return the same bits.
     """
-    x, group_size = _enter(streams, x, impl, group_size, plan, device)
-    if impl == "reference":
-        sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
-        y, stats, cache = sub(streams, x), None, None
-    else:
-        prep = _prepare(streams, group_size)
-        y = _accumulate(torch.zeros(streams.m, dtype=torch.float32, device=x.device), prep, x)
-        stats, cache = prep.stats, prep.records
-    if obs.is_enabled():
-        _record_call("spmv", stats, impl, plan, cache)
-    return y
+    with obs.span("cb_spmv"):
+        x, group_size = _enter(streams, x, impl, group_size, plan, device)
+        if impl == "reference":
+            sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
+            y, stats, cache, engine = sub(streams, x), None, None, None
+        else:
+            prep = _prepare(streams, group_size)
+            y = _accumulate(torch.zeros(streams.m, dtype=torch.float32, device=x.device),
+                            prep, x)
+            stats, cache, engine = prep.stats, prep.records, prep.engine["spmv"]
+        if obs.is_enabled():
+            _record_call("spmv", stats, impl, plan, cache, engine)
+        return y
 
 
 def cb_spmv_into(
@@ -412,25 +435,26 @@ def cb_spmv_into(
     no buffer is allocated for y, and the caller keeps using ``y_acc``.
     Other arguments as in :func:`cb_spmv`.
     """
-    x, group_size = _enter(streams, x, impl, group_size, plan, device)
-    if y_acc.shape != (streams.m,) or y_acc.device != x.device:
-        raise errors.InvalidArgError(
-            f"y_acc must be ({streams.m},) on {x.device}, got "
-            f"{tuple(y_acc.shape)} on {y_acc.device}")
-    if impl == "reference":
-        sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
-        y_acc.add_(sub(streams, x))
-        stats, cache = None, None
-    else:
-        if y_acc.dtype != torch.float32 or not y_acc.is_contiguous():
+    with obs.span("cb_spmv_into"):
+        x, group_size = _enter(streams, x, impl, group_size, plan, device)
+        if y_acc.shape != (streams.m,) or y_acc.device != x.device:
             raise errors.InvalidArgError(
-                "y_acc must be a contiguous float32 tensor for impl='cuda'")
-        prep = _prepare(streams, group_size)
-        _accumulate(y_acc, prep, x)
-        stats, cache = prep.stats, prep.records
-    if obs.is_enabled():
-        _record_call("spmv_into", stats, impl, plan, cache)
-    return y_acc
+                f"y_acc must be ({streams.m},) on {x.device}, got "
+                f"{tuple(y_acc.shape)} on {y_acc.device}")
+        if impl == "reference":
+            sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
+            y_acc.add_(sub(streams, x))
+            stats, cache, engine = None, None, None
+        else:
+            if y_acc.dtype != torch.float32 or not y_acc.is_contiguous():
+                raise errors.InvalidArgError(
+                    "y_acc must be a contiguous float32 tensor for impl='cuda'")
+            prep = _prepare(streams, group_size)
+            _accumulate(y_acc, prep, x)
+            stats, cache, engine = prep.stats, prep.records, prep.engine["spmv_into"]
+        if obs.is_enabled():
+            _record_call("spmv_into", stats, impl, plan, cache, engine)
+        return y_acc
 
 
 # ---------------------------------------------------------------------------

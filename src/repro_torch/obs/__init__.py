@@ -67,9 +67,12 @@ def histogram(name: str) -> Histogram:
     return registry().histogram(name)
 
 
+_TRACER = tracer()
+
+
 def span(name: str, **attrs):
     """Start a traced region on the default tracer (context manager)."""
-    return tracer().span(name, **attrs)
+    return _TRACER.span(name, **attrs)
 
 
 def snapshot() -> dict:

@@ -7,9 +7,16 @@ injectable monotonic clock (``metrics.now``):
         ...
         sp.set(status="ok")
 
-Spans nest per thread (a thread-local stack records each span's depth
-and parent), cost two clock reads plus one list append, and become
-no-ops when obs is disabled. Completed spans accumulate in a bounded
+Spans nest per thread (a thread-local counter records each span's
+depth), cost two clock reads plus one list append, and become no-ops
+when obs is disabled. While a ``torch.profiler`` is recording, a span
+also opens a ``torch.profiler.record_function`` of its name, so it shows
+in the profiler's trace as a ``user_annotation`` on the thread that ran
+it, on the clock of the device's kernels; with no profiler recording
+that costs one "is a profiler on" check. torch is never imported here:
+the check is looked up once torch is in ``sys.modules``.
+
+Completed spans accumulate in a bounded
 in-process buffer on the :class:`Tracer`; ``chrome_trace()`` renders
 them as Chrome ``trace_event`` *complete* events (``ph: "X"``, µs
 timestamps relative to the tracer epoch) — load the exported
@@ -24,12 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import sys
 import threading
 
 from . import metrics
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, slots=True)
 class SpanRecord:
     """One completed span (times in clock seconds since tracer epoch)."""
 
@@ -39,6 +47,24 @@ class SpanRecord:
     depth: int
     tid: int
     attrs: dict
+
+
+_FIELDS = len(SpanRecord.__slots__)
+
+
+def _find_profiler_check() -> bool:
+    """Whether a torch profiler is recording; False while torch is not imported.
+    Once torch is, its C check takes this function's place in ``_profiling``."""
+    global _profiling
+    autograd = getattr(getattr(sys.modules.get("torch"), "_C", None), "_autograd", None)
+    check = getattr(autograd, "_profiler_enabled", None)
+    if check is None:
+        return False
+    _profiling = check
+    return check()
+
+
+_profiling = _find_profiler_check
 
 
 class _NullSpan:
@@ -62,42 +88,48 @@ _NULL_SPAN = _NullSpan()
 class Span:
     """Context manager for one traced region; ``set()`` adds attrs."""
 
-    __slots__ = ("name", "attrs", "_tracer", "_start", "_depth", "_tid")
+    __slots__ = ("name", "attrs", "_tracer", "_start", "_depth", "_tid", "_annot")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict) -> None:
         self.name = name
         self.attrs = attrs
         self._tracer = tracer
-        self._start = 0.0
-        self._depth = 0
-        self._tid = 0
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
         return self
 
     def __enter__(self) -> "Span":
-        self._tid, stack = self._tracer._thread_state()
-        self._depth = len(stack)
-        stack.append(self)
-        self._start = metrics.now()
+        local = self._tracer._local
+        try:
+            depth = local.depth
+        except AttributeError:
+            depth = self._tracer._join_thread()
+        self._depth, self._tid = depth, local.tid
+        local.depth = depth + 1
+        if _profiling():
+            self._annot = sys.modules["torch"].profiler.record_function(self.name)
+            self._annot.__enter__()
+        else:
+            self._annot = None
+        self._start = metrics.CONFIG.clock()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        end = metrics.now()
-        _, stack = self._tracer._thread_state()
-        if stack and stack[-1] is self:
-            stack.pop()
+        end = metrics.CONFIG.clock()
+        if self._annot is not None:
+            self._annot.__exit__(exc_type, exc, tb)
+        tracer = self._tracer
+        tracer._local.depth = self._depth
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
-        self._tracer._record(SpanRecord(
-            name=self.name,
-            start=self._start - self._tracer._epoch,
-            duration=end - self._start,
-            depth=self._depth,
-            tid=self._tid,
-            attrs=dict(self.attrs),
-        ))
+        record = (self.name, self._start - tracer._epoch, end - self._start, self._depth,
+                  self._tid, dict(self.attrs) if self.attrs else None)
+        with tracer._lock:
+            if len(tracer._log) < _FIELDS * tracer.max_spans:
+                tracer._log.extend(record)
+            else:
+                tracer.dropped += 1
         return False
 
 
@@ -108,14 +140,16 @@ class Tracer:
         self.max_spans = max_spans
         self._lock = threading.Lock()
         self._local = threading.local()
-        self._records: list[SpanRecord] = []
+        # every completed span's SpanRecord fields, flat: a span adds no object
+        # that outlives it for the garbage collector to scan; records() builds them
+        self._log: list = []
         self._tids: dict[int, int] = {}
         self._epoch: float | None = None
         self.dropped = 0
 
     # -- recording ------------------------------------------------------
     def span(self, name: str, **attrs):
-        if not metrics.is_enabled():
+        if not metrics.CONFIG.enabled:
             return _NULL_SPAN
         if self._epoch is None:
             with self._lock:
@@ -123,30 +157,23 @@ class Tracer:
                     self._epoch = metrics.now()
         return Span(self, name, attrs)
 
-    def _thread_state(self) -> tuple[int, list]:
-        stack = getattr(self._local, "stack", None)
-        if stack is None:
-            stack = self._local.stack = []
-            with self._lock:
-                self._local.tid = self._tids.setdefault(
-                    threading.get_ident(), len(self._tids))
-        return self._local.tid, stack
-
-    def _record(self, record: SpanRecord) -> None:
+    def _join_thread(self) -> int:
+        """Give the calling thread its logical id; return its span depth (0)."""
         with self._lock:
-            if len(self._records) >= self.max_spans:
-                self.dropped += 1
-                return
-            self._records.append(record)
+            self._local.tid = self._tids.setdefault(threading.get_ident(), len(self._tids))
+        self._local.depth = 0
+        return 0
 
     # -- reading --------------------------------------------------------
     def records(self) -> tuple[SpanRecord, ...]:
         with self._lock:
-            return tuple(self._records)
+            log = list(self._log)
+        return tuple(SpanRecord(*log[i:i + _FIELDS - 1], log[i + _FIELDS - 1] or {})
+                     for i in range(0, len(log), _FIELDS))
 
     def reset(self) -> None:
         with self._lock:
-            self._records.clear()
+            self._log.clear()
             self._tids.clear()
             self._epoch = None
             self.dropped = 0

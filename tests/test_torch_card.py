@@ -10,11 +10,13 @@ parity tests hold bit-equal to the JAX package's), and the float64 oracle is
 the port's ``core.spmv_ref.dense_oracle``. Without a card every case skips.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch import solvers as tsolvers
 from repro_torch.core import CBMatrix, dense_oracle
 from repro_torch.core import streams as tstreams
@@ -126,6 +128,64 @@ def test_cuda_kernels_vs_plain_on_the_card(scn, G):
         assert torch.equal(
             t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, xg, block_size=B),
             t_coo.coo_spmv_plain(s.coo_codes, s.coo_vals, xg, block_size=B))
+
+
+# -- tests/test_torch_tracing.py: every kernel a call launches, in the registry -------
+
+def _hub_with_a_dense_block(seed=0):
+    """A hub row over every block column (its block row is longer than one
+    combine chunk, so the combine takes its second pass), the diagonal in
+    COO blocks and one dense 16 x 16 block."""
+    m, n = 256, 1024
+    bi, bj = np.meshgrid(np.arange(128, 144), np.arange(512, 528), indexing="ij")
+    rows = np.concatenate([np.zeros(n // 4, np.int64), np.arange(m), bi.ravel()])
+    cols = np.concatenate([np.arange(0, n, 4), np.arange(m), bj.ravel()])
+    keys = np.unique(rows * n + cols)
+    rows, cols = keys // n, keys % n
+    vals = np.random.default_rng(seed).standard_normal(len(rows)).astype(np.float32)
+    return rows, cols, vals, (m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["spmv", "spmv_into"])
+def test_registry_launches_equal_the_profilers_kernels_on_the_card(entry, tmp_path):
+    """``repro.ops.{entry}.launches`` per call, every series summed, is the
+    number of kernels the profiler sees a call run; each call is one
+    ``user_annotation`` of its span's name."""
+    _need_card()
+    rows, cols, vals, shape = _hub_with_a_dense_block()
+    cb = CBMatrix.from_coo(rows, cols, vals, shape, block_size=16)
+    s = tstreams.build_super_streams(cb).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape[1])
+                         .astype(np.float32)).cuda()
+    y = torch.zeros(shape[0], device="cuda")
+
+    def call():
+        if entry == "spmv":
+            return tops.cb_spmv(s, x)
+        return tops.cb_spmv_into(y, s, x)
+
+    call()
+    assert len(tops._prepare(s, None).combine.passes) == 2
+    assert tops.spmv_launch_stats(s)["launches"] == {"dense": 1, "panel": 0, "coo": 1}
+    torch.cuda.synchronize()
+    obs.reset()
+    calls = 8
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    path = tmp_path / "calls.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name") == f"cb_{entry}"]
+    launches = obs.counter(f"repro.ops.{entry}.launches").total()
+    assert obs.counter(f"repro.ops.{entry}.calls").value(impl="cuda") == calls
+    assert len(spans) == calls
+    assert launches / calls == len(kernels) / calls == (7 if entry == "spmv" else 6)
 
 
 # -- tests/test_torch_spmv.py: cb_spmv end to end -------------------------------------

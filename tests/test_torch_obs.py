@@ -34,6 +34,7 @@ from repro_torch.core import streams as tstreams
 from repro_torch.kernels import ops as tops
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.solvers import CBLinearOperator, robust_solve
+from torch_port import PORT_ONLY_LAUNCHES, shared_snapshot, shared_spans
 
 BOTH = (jobs, tobs)
 HEURISTIC = SearchSettings(mode="heuristic")
@@ -249,7 +250,9 @@ def test_ops_accounting_equal_to_repro_after_the_impl_mapping():
         jops.cb_spmm(jt, jnp.asarray(X), impl=jimpl, interpret=True)
         tops.cb_spmm(tt, X, impl=timpl, device="cpu")
     snap = tobs.snapshot()
-    assert snap == _pallas_as_cuda(jobs.snapshot())
+    assert shared_snapshot(snap) == shared_snapshot(_pallas_as_cuda(jobs.snapshot()))
+    assert {s["labels"]["format"] for s in snap["repro.ops.spmv.launches"]["series"]} \
+        >= PORT_ONLY_LAUNCHES and "repro.ops.spmv.group_size" not in snap
     stats = tops.spmv_launch_stats(tp)
     steps = {s["labels"]["format"]: s["value"] for s in snap["repro.ops.spmv_into.steps"]["series"]}
     assert steps == {f: n for f, n in stats["steps"].items() if n}
@@ -366,7 +369,7 @@ def test_robust_solve_counters_and_spans_match_repro(impl):
     assert its_t.keys() == its_j.keys()
     assert all(abs(its_t[k] - its_j[k]) <= 2 for k in its_t)   # the solver tests' margin
     assert tobs.counter("repro.solvers.robust.attempts").total() == len(tres.attempts)
-    names = [r.name for r in tobs.tracer().records()]
+    names = shared_spans(r.name for r in tobs.tracer().records())
     assert names == [r.name for r in jobs.tracer().records()]
     assert names[-1] == "robust_solve" and f"solve:{tres.solver}" in names
     root = tobs.tracer().records()[-1]

@@ -15,6 +15,37 @@ from repro_torch.core.formats import FormatThresholds as TorchThresholds
 STREAM_FIELDS = tstreams._STREAM_FIELDS
 META_FIELDS = ("block_size", "m", "n", "mb", "colagg_applied")
 
+# What one package's obs records and the other's does not; the parity tests
+# strip exactly these and compare everything the two share.
+PORT_ONLY_SPANS = frozenset({
+    "cb.from_coo", "cb.partition", "cb.colagg", "cb.formats", "cb.balance",  # the host build
+    "streams.build_super", "streams.to",
+    "cb_spmv", "cb_spmv_into",                                                # one per call
+})
+PORT_ONLY_LAUNCHES = frozenset({"gather", "combine", "fill"})   # repro.ops.*.launches{format}
+REFERENCE_ONLY_GAUGE = "group_size"                             # repro.ops.{entry}.group_size
+
+
+def shared_spans(names) -> list:
+    """Span names in order, the port-only ones left out."""
+    return [n for n in names if n not in PORT_ONLY_SPANS]
+
+
+def shared_snapshot(snap: dict) -> dict:
+    """An obs snapshot without the port-only ``launches`` series and the
+    reference-only ``group_size`` gauges (either package's snapshot)."""
+    out = {}
+    for name, metric in snap.items():
+        parts = name.split(".")
+        if parts[:2] == ["repro", "ops"] and parts[-1] == REFERENCE_ONLY_GAUGE:
+            continue
+        if parts[:2] == ["repro", "ops"] and parts[-1] == "launches":
+            metric = dict(metric, series=[
+                s for s in metric["series"]
+                if s["labels"].get("format") not in PORT_ONLY_LAUNCHES])
+        out[name] = metric
+    return out
+
 
 def scenario_cut(step: int = 1) -> list[Scenario]:
     """Every ``step``-th scenario of the conformance grid (structures x B
