@@ -519,9 +519,9 @@ def panel_pair(panels, xg):
             lambda: cb_colagg.panel_spmv_plain(panels, xg))
 
 
-def coo_pair(codes, vals, xg, B):
-    return (lambda: cb_coo.coo_spmv_batched(codes, vals, xg, block_size=B),
-            lambda: cb_coo.coo_spmv_plain(codes, vals, xg, block_size=B))
+def coo_pair(codes, vals, xidx, x, B):
+    return (lambda: cb_coo.coo_spmv_batched(codes, vals, xidx, x, block_size=B),
+            lambda: cb_coo.coo_spmv_plain(codes, vals, xidx, x, block_size=B))
 
 
 def combine_pair(m, parts, brow, B, plan=None, y=None):
@@ -583,7 +583,10 @@ def edge_grid(seed: int) -> int:
                         vals = payload((groups, W), dtype, integer)
                         vals[:, W // 2:] *= (torch.rand((groups, W - W // 2), generator=gen)
                                              .to(DEV) < 0.5)       # padding lanes: val == 0
-                        k, p = coo_pair(codes, vals, xg, B)
+                        x = payload((3 * W,), torch.float32, integer)
+                        xidx = torch.randint(0, 3 * W, (groups, W), generator=gen).to(DEV)
+                        xidx = xidx.masked_fill(vals == 0, 0).to(torch.int32)  # and xidx == 0
+                        k, p = coo_pair(codes, vals, xidx, x, B)
                         compare("coo", k(), p(), f"{tag} W={W}", exact=integer)
                         cases += 3
         # an all-padding group: zero payload, brow 0, code 0
@@ -596,7 +599,8 @@ def edge_grid(seed: int) -> int:
                 "all-padding", exact=True)
         compare("coo", *[f() for f in coo_pair(z((2, 24), dtype=torch.int32, device=DEV),
                                                z((2, 24), device=DEV),
-                                               payload((2, 24), torch.float32, False), B)],
+                                               z((2, 24), dtype=torch.int32, device=DEV),
+                                               payload((24,), torch.float32, False), B)],
                 "all-padding", exact=True)
     return cases + combine_edge_grid(gen, payload) + spmm_edge_grid(gen, payload)
 
@@ -838,7 +842,7 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     del y_ref
 
     # -- each kernel against its plain version, and timed, at these shapes -----
-    xg_d, xg_p, xg_c = (ops._gather(x, i) for i in (s.dense_xidx, s.panel_xidx, s.coo_xidx))
+    xg_d, xg_p = (ops._gather(x, i) for i in (s.dense_xidx, s.panel_xidx))
     prep = ops._prepare(s, None)
     parts = torch.empty((prep.brow.numel(), B), dtype=torch.float32, device=DEV)
     nd, npn = s.dense_brow.numel(), s.panel_brow.numel()
@@ -854,8 +858,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
                           (lambda: panel_library(s.panel_vals, xg_p), "torch.einsum"))
     if s.num_coo_groups:
         nco = s.coo_brow.numel()
-        pairs["coo"] = (coo_pair(s.coo_codes, s.coo_vals, xg_c, B),
-                        nbytes(s.coo_codes, s.coo_vals, xg_c) + nco * B * 4,
+        pairs["coo"] = (coo_pair(s.coo_codes, s.coo_vals, s.coo_xidx, x, B),
+                        nbytes(s.coo_codes, s.coo_vals, s.coo_xidx, x) + nco * B * 4,
                         2 * s.coo_codes.numel(), tuple(s.coo_codes.shape),
                         (None, None))       # no single call decodes the codes and scatters
     for k, ((kern, plain), nb, fl, shp, lib) in pairs.items():
@@ -910,8 +914,7 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
     spmv_enqueue_ms = enqueue_ms(spmv_call)
     accounting = check_accounting(name, s)
     enqueue_obs = obs_enqueue_ms(spmv_call)
-    gather_ms = time_ms(lambda: [ops._gather(x, i) for i in
-                                 (s.dense_xidx, s.panel_xidx, s.coo_xidx)])
+    gather_ms = time_ms(lambda: [ops._gather(x, i) for i in (s.dense_xidx, s.panel_xidx)])
     region = s.region_nbytes()
     crow = torch.from_numpy(np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=shape[0]))]))
     A = torch.sparse_csr_tensor(crow.to(DEV), torch.from_numpy(cols).to(DEV),
@@ -971,8 +974,8 @@ def check_shard_kernels(tag, local, x) -> None:
         parts[nd:nd + npn] = panel_pair(s.panel_vals, ops._gather(x, s.panel_xidx))[0]() \
             .reshape(-1, B)
     if s.num_coo_groups:
-        parts[nd + npn:] = coo_pair(s.coo_codes, s.coo_vals, ops._gather(x, s.coo_xidx),
-                                    B)[0]().reshape(-1, B)
+        parts[nd + npn:] = coo_pair(s.coo_codes, s.coo_vals, s.coo_xidx, x, B)[0]() \
+            .reshape(-1, B)
     kc, pc = combine_pair(s.m, parts, prep.brow, B, prep.combine)
     compare("combine", kc(), pc(), f"{tag} T={parts.shape[0]}")
 
@@ -1341,8 +1344,8 @@ def check_kernels_at(tag, s, x) -> None:
     for k, groups, pair in (
             ("dense", s.num_dense_groups, lambda: dense_pair(s.dense_tiles, ops._gather(x, s.dense_xidx))),
             ("panel", s.num_panel_groups, lambda: panel_pair(s.panel_vals, ops._gather(x, s.panel_xidx))),
-            ("coo", s.num_coo_groups, lambda: coo_pair(s.coo_codes, s.coo_vals,
-                                                       ops._gather(x, s.coo_xidx), B))):
+            ("coo", s.num_coo_groups, lambda: coo_pair(s.coo_codes, s.coo_vals, s.coo_xidx,
+                                                       x, B))):
         if groups:
             kern, plain = pair()
             compare(k, kern(), plain(), f"{tag} B={B}")

@@ -1,8 +1,9 @@
 """Public entry points for the CB-SpMV and CB-SpMM kernels.
 
 ``cb_spmv(streams, x)`` runs the batched super-block execution engine:
-x is gathered through each format's ``*_xidx`` (torch indexing with the
-int32 indices as stored), each per-format stream becomes at most ONE
+x is gathered through the dense and panel formats' ``*_xidx`` (torch
+indexing with the int32 indices as stored; the COO kernel reads x through
+``coo_xidx`` itself), each per-format stream becomes at most ONE
 kernel launch covering every super-block group of that format (the
 paper's "segregated per-format streams" in place of intra-kernel
 branching), every kernel writes its per-slot partials into one shared
@@ -33,7 +34,8 @@ metric names) in ``repro_torch.obs``; with obs disabled that is one
 boolean check, and results are bit-identical either way. ``cb_spmv`` and
 ``cb_spmv_into`` count every kernel a call launches, beyond the JAX
 package's series: ``launches{format=gather}`` (one x gather per present
-format), ``{format=combine}`` (the combine's passes) and, for ``cb_spmv``,
+dense or panel format, recorded as 0 where there is none),
+``{format=combine}`` (the combine's passes) and, for ``cb_spmv``,
 ``{format=fill}`` (y's zero-fill). Each runs under one ``obs`` span of its
 own name, which a recording ``torch.profiler`` also sees.
 """
@@ -189,7 +191,7 @@ def spmv_launch_stats(
 
 
 # ---------------------------------------------------------------------------
-# The batched engine: gather -> <=1 kernel per format -> one combine.
+# The batched engine: <=1 kernel per format (dense and panel on a gathered x) -> one combine.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -206,9 +208,10 @@ class _Prepared:
 
 def _engine_launches(stats: dict, combine, num_slots: int, m: int) -> dict:
     """The kernels a call launches beside its format kernels, per entry point:
-    one x gather per present format, the combine's passes (the CUDA plan's, or
-    the one ``index_add_`` of the CPU path) and, for ``cb_spmv``, y's fill."""
-    gather = sum(stats["launches"].values())
+    one x gather per present dense or panel format (the COO kernel reads x
+    itself), the combine's passes (the CUDA plan's, or the one ``index_add_``
+    of the CPU path) and, for ``cb_spmv``, y's fill."""
+    gather = stats["launches"]["dense"] + stats["launches"]["panel"]
     passes = len(combine.passes) if combine is not None else int(num_slots > 0)
     into = {"gather": gather, "combine": passes}
     return {"spmv": dict(into, fill=int(m > 0)), "spmv_into": into}
@@ -258,10 +261,11 @@ def _gather(x: torch.Tensor, xidx: torch.Tensor) -> torch.Tensor:
 
 
 def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tensor:
-    """y += A @ x in place: gather, one kernel per present format, combine."""
+    """y += A @ x in place: one kernel per present format (dense and panel on
+    a gathered x, COO on x itself), then the combine."""
     s = prep.sup
     B = s.block_size
-    x32 = x.to(torch.float32)
+    x32 = x.to(torch.float32).contiguous()
     parts = torch.empty((prep.brow.numel(), B), dtype=torch.float32, device=y.device)
     nd, npn = s.dense_brow.numel(), s.panel_brow.numel()
     if s.num_dense_groups:
@@ -274,7 +278,7 @@ def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tens
             out=parts[nd:nd + npn].view(*s.panel_brow.shape, B))
     if s.num_coo_groups:
         cb_coo.coo_spmv_batched(
-            s.coo_codes, s.coo_vals, _gather(x32, s.coo_xidx), block_size=B,
+            s.coo_codes, s.coo_vals, s.coo_xidx, x32, block_size=B,
             out=parts[nd + npn:].view(*s.coo_brow.shape, B))
     return cb_combine.segment_combine(y, parts, prep.brow, B, prep.combine)
 
@@ -306,7 +310,9 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan,
     so ``launches`` / ``steps`` / ``padded_elems`` per format are recorded
     for ``impl="cuda"`` alone (the JAX package records them for
     ``"pallas"``), and ``engine``'s launches beside the format kernels
-    (``_engine_launches``) as more ``launches`` series. With a plan carrying a
+    (``_engine_launches``) as more ``launches`` series; ``gather`` even at 0,
+    so a reader can tell a call that gathered nothing from a program that does
+    not count its gathers. With a plan carrying a
     ``structure_hash`` an SpMV also records the ``repro.autotune.exec.*``
     measured-vs-predicted pair: both sides accumulate once per call, so their
     ratio is the cost model's per-call fidelity.
@@ -320,7 +326,7 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan,
             batch.inc(f"repro.ops.{entry}.steps", n, format=fmt)
             batch.inc(f"repro.ops.{entry}.padded_elems", stats["padded"][fmt], format=fmt)
     for kind, n in (engine or {}).items():
-        if n:
+        if n or kind == "gather":
             batch.inc(f"repro.ops.{entry}.launches", n, format=kind)
     label = getattr(plan, "structure_hash", None)
     if label is not None and entry in ("spmv", "spmv_into"):

@@ -124,10 +124,53 @@ def test_cuda_kernels_vs_plain_on_the_card(scn, G):
         assert torch.equal(t_panel.panel_spmv_batched(s.panel_vals, xg),
                            t_panel.panel_spmv_plain(s.panel_vals, xg))
     if s.num_coo_groups:
-        xg = x[s.coo_xidx.long()]
         assert torch.equal(
-            t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, xg, block_size=B),
-            t_coo.coo_spmv_plain(s.coo_codes, s.coo_vals, xg, block_size=B))
+            t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, s.coo_xidx, x, block_size=B),
+            t_coo.coo_spmv_plain(s.coo_codes, s.coo_vals, s.coo_xidx, x, block_size=B))
+
+
+def _coo_stream(case, dtype, rng):
+    """(codes, vals, xidx, x) on the card, integer-valued (every sum exact):
+    ``padding``, a random stream whose zero lanes carry xidx 0; ``hub``, the
+    COO blocks of a hub row over every block column; ``big_x``, indices over
+    an x of 16 M entries (64 MB, more than L2 holds)."""
+    B = 16
+    if case == "hub":
+        rows, cols, vals, shape = _hub_with_a_dense_block()
+        cb = CBMatrix.from_coo(rows, cols, vals, shape, block_size=B)
+        s = tstreams.build_super_streams(cb)
+        codes, xidx = s.coo_codes, s.coo_xidx
+        vals = torch.from_numpy(rng.integers(1, 8, codes.shape)) * (s.coo_vals != 0)
+        n = shape[1]
+    else:
+        gc, W, n = (37, 8 * 129, 4096) if case == "padding" else (256, 4096, 1 << 24)
+        rows = torch.from_numpy(rng.integers(0, B, (gc, W)))
+        cols = torch.from_numpy(rng.integers(0, 1 << 14, (gc, W)))
+        codes = ((cols << t_coo.row_mask(B).bit_length()) | rows).to(torch.int32)
+        vals = torch.from_numpy(rng.integers(-7, 8, (gc, W)))
+        vals[:, W // 2:] *= torch.from_numpy(rng.random((gc, W - W // 2)) < 0.5)
+        xidx = torch.from_numpy(rng.integers(0, n, (gc, W))).masked_fill(vals == 0, 0)
+    x = torch.from_numpy(rng.integers(-4, 5, n).astype(np.float32))
+    return (codes.to(torch.int32).cuda(), vals.to(dtype).cuda(), xidx.to(torch.int32).cuda(),
+            x.cuda(), B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64],
+                         ids=["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("case", ["padding", "hub", "big_x"])
+def test_coo_kernel_reads_x_by_index_on_the_card(case, dtype):
+    """The COO kernel, which reads ``x[xidx]`` itself, equals its plain
+    version bit for bit, and counts its launch."""
+    _need_card()
+    codes, vals, xidx, x, B = _coo_stream(case, dtype, np.random.default_rng(7))
+    before = t_coo.coo_spmv_batched.launches
+    got = t_coo.coo_spmv_batched(codes, vals, xidx, x, block_size=B)
+    assert t_coo.coo_spmv_batched.launches == before + 1
+    want = t_coo.coo_spmv_plain(codes, vals, xidx, x, block_size=B)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.abs().sum() > 0
 
 
 # -- tests/test_torch_tracing.py: every kernel a call launches, in the registry -------
@@ -185,7 +228,10 @@ def test_registry_launches_equal_the_profilers_kernels_on_the_card(entry, tmp_pa
     launches = obs.counter(f"repro.ops.{entry}.launches").total()
     assert obs.counter(f"repro.ops.{entry}.calls").value(impl="cuda") == calls
     assert len(spans) == calls
-    assert launches / calls == len(kernels) / calls == (7 if entry == "spmv" else 6)
+    # dense's gather, the dense and COO kernels, two combine passes (and y's fill):
+    # the COO kernel reads x itself, so no gather is counted or run for it
+    assert obs.counter(f"repro.ops.{entry}.launches").value(format="gather") == calls
+    assert launches / calls == len(kernels) / calls == (6 if entry == "spmv" else 5)
 
 
 # -- tests/test_torch_spmv.py: cb_spmv end to end -------------------------------------

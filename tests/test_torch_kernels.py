@@ -114,9 +114,11 @@ def test_coo_plain_vs_pallas(scn, G, integer):
     want = j_coo.coo_spmv_batched(
         jnp.asarray(js.coo_codes), jnp.asarray(js.coo_vals),
         jnp.asarray(x)[js.coo_xidx], block_size=B, interpret=True)
-    xg = torch.from_numpy(x)[ts.coo_xidx.long()]
-    _check(t_coo.coo_spmv_plain(ts.coo_codes, ts.coo_vals, xg, block_size=B), want, integer)
-    _check(t_coo.coo_spmv_batched(ts.coo_codes, ts.coo_vals, xg, block_size=B), want, integer)
+    tx = torch.from_numpy(x)
+    _check(t_coo.coo_spmv_plain(ts.coo_codes, ts.coo_vals, ts.coo_xidx, tx, block_size=B),
+           want, integer)
+    _check(t_coo.coo_spmv_batched(ts.coo_codes, ts.coo_vals, ts.coo_xidx, tx, block_size=B),
+           want, integer)
 
 
 @pytest.mark.parametrize("B", [8, 16, 24, 32])
@@ -236,9 +238,25 @@ def test_wrappers_check_their_arguments():
                                          xg, out=torch.zeros((2, 2, 16)).transpose(0, 1))
     with pytest.raises(terrors.InvalidArgError):
         t_panel.panel_spmv_batched(torch.zeros((1, 8, 12)), torch.zeros((1, 12)))   # W % 8
+    codes, xidx = torch.zeros((1, 8), dtype=torch.int32), torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(terrors.InvalidArgError):
-        t_coo.coo_spmv_batched(torch.zeros((1, 8), dtype=torch.int64), torch.zeros((1, 8)),
-                               torch.zeros((1, 8)), block_size=8)                   # codes dtype
+        t_coo.coo_spmv_batched(codes.long(), torch.zeros((1, 8)), xidx, torch.zeros(4),
+                               block_size=8)                                        # codes dtype
+    with pytest.raises(terrors.InvalidArgError):
+        t_coo.coo_spmv_batched(codes, torch.zeros((1, 8)), xidx.long(), torch.zeros(4),
+                               block_size=8)                                        # xidx dtype
+    with pytest.raises(terrors.InvalidArgError):
+        t_coo.coo_spmv_batched(codes, torch.zeros((1, 8)), xidx[:, :4], torch.zeros(4),
+                               block_size=8)                                        # xidx shape
+    with pytest.raises(terrors.InvalidArgError):
+        t_coo.coo_spmv_batched(codes, torch.zeros((1, 8)), xidx, torch.zeros(4).double(),
+                               block_size=8)                                        # x dtype
+    with pytest.raises(terrors.InvalidArgError):
+        t_coo.coo_spmv_batched(codes, torch.zeros((1, 8)), xidx, torch.zeros((2, 2)),
+                               block_size=8)                                        # x shape
+    with pytest.raises(terrors.InvalidArgError):
+        t_coo.coo_spmv_batched(codes, torch.zeros((1, 8)), xidx, torch.zeros(0),
+                               block_size=8)                                        # x empty
     with pytest.raises(terrors.InvalidArgError):
         t_combine.segment_combine(torch.zeros(8), torch.zeros((2, 4)),
                                   torch.zeros(2, dtype=torch.int32), 8)             # parts shape
@@ -254,7 +272,8 @@ def test_empty_streams_launch_nothing_and_return_empty():
     assert tuple(t_panel.panel_spmv_batched(torch.zeros((0, 16, 0)),
                                             torch.zeros((0, 0))).shape) == (0, 0, 16)
     assert tuple(t_coo.coo_spmv_batched(torch.zeros((0, 0), dtype=torch.int32),
-                                        torch.zeros((0, 0)), torch.zeros((0, 0)),
-                                        block_size=16).shape) == (0, 0, 16)
+                                        torch.zeros((0, 0)),
+                                        torch.zeros((0, 0), dtype=torch.int32),
+                                        torch.zeros(0), block_size=16).shape) == (0, 0, 16)
     # the counters count CUDA launches only: none of this ran on a card
     assert t_dense.block_dense_spmv_batched.launches == before

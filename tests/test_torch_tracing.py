@@ -9,7 +9,9 @@
   ``user_annotation`` of the exported trace that encloses the call's aten
   ops; with no profiler recording no ``record_function`` is entered;
 - ``repro.ops.{spmv,spmv_into}.launches`` counts, per call, every kernel
-  the engine runs (``gather``, ``combine``, ``fill`` beside the formats);
+  the engine runs (``gather``, ``combine``, ``fill`` beside the formats;
+  ``gather`` only for dense and panel groups, and as a 0 series where there
+  are none: the COO kernel reads x itself);
   the ``group_size`` gauge is gone;
 - ``repro_torch.obs`` imports and records with torch absent.
 
@@ -31,6 +33,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import CBMatrix
 from repro_torch.core import streams as tstreams
+from repro_torch.core.formats import FormatThresholds
 from repro_torch.data import matrices
 from repro_torch.kernels import cb_combine, ops
 
@@ -179,7 +182,7 @@ def test_launch_series_per_call_count_the_engine(entry):
            for d in snap[f"repro.ops.{entry}.launches"]["series"]}
     stats = ops.spmv_launch_stats(s)
     assert stats["launches"] == {"dense": 1, "panel": 1, "coo": 1}
-    want = {"dense": 1, "panel": 1, "coo": 1, "gather": 3, "combine": 1}
+    want = {"dense": 1, "panel": 1, "coo": 1, "gather": 2, "combine": 1}
     if entry == "spmv":
         want["fill"] = 1
     assert got == want == {**stats["launches"], **ops._prepare(s, None).engine[entry]}
@@ -195,10 +198,43 @@ def test_engine_counts_the_combine_plans_passes():
         plan = cb_combine.plan_combine(torch.tensor(rows, dtype=torch.int32), "cpu")
         assert len(plan.passes) == passes
         engine = ops._engine_launches(stats, plan, len(rows), s.m)
-        assert engine == {"spmv": {"gather": 3, "combine": passes, "fill": 1},
-                          "spmv_into": {"gather": 3, "combine": passes}}
-    assert ops._engine_launches(stats, None, 0, 0)["spmv"] == {"gather": 3, "combine": 0,
+        assert engine == {"spmv": {"gather": 2, "combine": passes, "fill": 1},
+                          "spmv_into": {"gather": 2, "combine": passes}}
+    assert ops._engine_launches(stats, None, 0, 0)["spmv"] == {"gather": 2, "combine": 0,
                                                              "fill": 0}
+
+
+def _coo_hub_streams():
+    """Every block COO: a hub row over every fourth column (its block row is
+    longer than one combine chunk) and the diagonal."""
+    m, n = 256, 1024
+    rows = np.concatenate([np.zeros(n // 4, np.int64), np.arange(1, m)])
+    cols = np.concatenate([np.arange(0, n, 4), np.arange(1, m)])
+    vals = np.random.default_rng(5).standard_normal(len(rows)).astype(np.float32)
+    cb = CBMatrix.from_coo(rows, cols, vals, (m, n), block_size=16,
+                           thresholds=FormatThresholds(th1=256, th2=256))
+    return tstreams.build_super_streams(cb)
+
+
+def test_a_coo_only_call_gathers_nothing_and_says_so():
+    """A COO-only stream: ``gather`` is a series that reads 0, and the call
+    counts 4 launches where the combine takes two passes, as on the card
+    (the CPU path's combine is one ``index_add_``)."""
+    s = _coo_hub_streams()
+    stats = ops.spmv_launch_stats(s)
+    assert stats["launches"] == {"dense": 0, "panel": 0, "coo": 1}
+    x = _x(1024, seed=2)
+    y = _call("spmv", s, x)
+    got = {d["labels"]["format"]: d["value"]
+           for d in obs.snapshot()["repro.ops.spmv.launches"]["series"]}
+    assert got == {"coo": 1, "gather": 0, "combine": 1, "fill": 1}
+    prep = ops._prepare(s, None)
+    plan = cb_combine.plan_combine(prep.brow, "cpu")
+    assert len(plan.passes) == 2
+    engine = ops._engine_launches(stats, plan, prep.brow.numel(), s.m)["spmv"]
+    assert engine == {"gather": 0, "combine": 2, "fill": 1}
+    assert sum(engine.values()) + sum(stats["launches"].values()) == 4
+    torch.testing.assert_close(y, _call("spmv", s, x, impl="reference"), rtol=1e-5, atol=1e-5)
 
 
 def test_spmm_records_no_group_size_gauge():
