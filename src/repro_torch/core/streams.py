@@ -626,6 +626,9 @@ def build_super_streams(
     so the shared array width ``W = max_g sum(widths)`` — the padded
     payload every group stores — is as small and as equal as the block
     mix allows. The tensors live on the CPU until ``.to(device)``.
+    Each build sets the gauge ``repro.streams.nnz{format}`` (dense, panel,
+    coo) to the non-zeros that format holds, which a call's
+    ``repro.ops.spmv.padded_elems`` pads to its stored slots.
     """
     G = group_size_for(cb.block_size) if group_size is None else int(group_size)
     if G < 1:
@@ -687,6 +690,9 @@ def _pack_super_streams(cb: CBMatrix, G: int) -> SuperBlockStreams:
         c_brow = np.zeros((0, 0), np.int32)
         c_xidx = np.zeros((0, 0), np.int32)
 
+    nnz = obs.gauge("repro.streams.nnz")
+    for fmt, n in (("dense", int(d_load.sum())), ("panel", len(p_val)), ("coo", len(c_val))):
+        nnz.set(n, format=fmt)
     return _wrap(SuperBlockStreams, dict(_stream_meta(cb), group_size=G), dict(
         dense_tiles=d_tiles, dense_brow=d_brow, dense_xidx=d_xidx,
         panel_vals=p_vals, panel_brow=p_brow, panel_xidx=p_xidx,

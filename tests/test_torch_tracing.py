@@ -8,6 +8,8 @@
 - under a recording ``torch.profiler`` every span is also a
   ``user_annotation`` of the exported trace that encloses the call's aten
   ops; with no profiler recording no ``record_function`` is entered;
+- each ``build_super_streams`` sets ``repro.streams.nnz{format}``, the
+  non-zeros each format holds, and no call sets it;
 - ``repro.ops.{spmv,spmv_into}.launches`` counts, per call, every kernel
   the engine runs (``gather``, ``combine``, ``fill`` beside the formats;
   ``gather`` only for dense and panel groups, and as a 0 series where there
@@ -96,6 +98,40 @@ def test_build_records_nothing_with_obs_disabled():
     obs.configure(enabled=False)
     _streams().to("cpu")
     assert obs.tracer().records() == ()
+
+
+# -- the non-zeros each format holds --------------------------------------------
+
+def _series(name):
+    metric = obs.snapshot().get(name, {"series": []})
+    return {d["labels"]["format"]: d["value"] for d in metric["series"]}
+
+
+@pytest.mark.parametrize("kind", ["banded", "power_law", "block_clustered"])
+def test_each_build_records_the_nonzeros_each_format_holds(kind):
+    """``repro.streams.nnz{format}`` sums to the matrix's non-zeros, and a
+    call's ``padded_elems`` holds at least as many slots; calls leave it be."""
+    r, c, v = getattr(matrices, kind)(192, 192, seed=3)
+    cb = CBMatrix.from_coo(r, c, v.astype(np.float32), (192, 192), block_size=16)
+    s = tstreams.build_super_streams(cb)
+    nnz = _series("repro.streams.nnz")
+    assert set(nnz) == {"dense", "panel", "coo"} and sum(nnz.values()) == cb.nnz == len(v)
+    assert nnz["panel"] > 0 and nnz["coo"] > 0
+    assert (nnz["dense"] > 0) == (kind == "block_clustered")
+    obs.reset()
+    ops.cb_spmv(s, _x(192), device="cpu")
+    padded = _series("repro.ops.spmv.padded_elems")
+    assert all(n <= padded[f] for f, n in nnz.items() if n)
+    assert "repro.streams.nnz" not in obs.snapshot()          # set by the build alone
+
+
+def test_a_build_with_obs_disabled_sets_no_gauge():
+    obs.configure(enabled=False)
+    s = _streams()
+    obs.configure(enabled=True)
+    assert obs.snapshot() == {}
+    ops.cb_spmv(s, _x(), device="cpu")
+    assert "repro.streams.nnz" not in obs.snapshot()
 
 
 # -- one span a call ------------------------------------------------------------

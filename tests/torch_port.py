@@ -23,6 +23,7 @@ PORT_ONLY_SPANS = frozenset({
     "cb_spmv", "cb_spmv_into",                                                # one per call
 })
 PORT_ONLY_LAUNCHES = frozenset({"gather", "combine", "fill"})   # repro.ops.*.launches{format}
+PORT_ONLY_GAUGES = frozenset({"repro.streams.nnz"})             # set per build_super_streams
 REFERENCE_ONLY_GAUGE = "group_size"                             # repro.ops.{entry}.group_size
 
 
@@ -32,10 +33,13 @@ def shared_spans(names) -> list:
 
 
 def shared_snapshot(snap: dict) -> dict:
-    """An obs snapshot without the port-only ``launches`` series and the
-    reference-only ``group_size`` gauges (either package's snapshot)."""
+    """An obs snapshot without the port-only ``launches`` series and
+    ``repro.streams.nnz`` gauge, and the reference-only ``group_size``
+    gauges (either package's snapshot)."""
     out = {}
     for name, metric in snap.items():
+        if name in PORT_ONLY_GAUGES:
+            continue
         parts = name.split(".")
         if parts[:2] == ["repro", "ops"] and parts[-1] == REFERENCE_ONLY_GAUGE:
             continue
