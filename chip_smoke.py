@@ -17,13 +17,20 @@ the ``nvidia-smi`` line):
    W = 8 and a large odd multiple of 8; spmm over G in {1, 4, 16} and N in
    {1, 16, 20, 33, 100, 129, 512} (B > 32: G in {1, 2}, N in {1, 20, 100,
    127, 128, 129, 512, 1025, 2049}), and X a view one element past an aligned
-   base; an all-padding group;
+   base; an all-padding group; the bitmap panel kernel on sparse panels (a lane in
+   five holds a value) against its plain version and bit for bit against the
+   padded panel kernel;
    the combine over the row-length profiles it meets (block row 0 with
    35,000 slots, rows at exactly one and two chunks, a row longer than a
    chunk squared, the solver's short rows, an inf slot) at R in {8, 16, 24}
    and SpMM's wide rows (R = B*N up to 524288), the last block row ragged,
    parts and y also one float past an aligned base, two runs bit-equal;
    random data within a tolerance and integer data bit for bit.
+3b. ``panel_layouts`` — the padded and the bitmap panel kernels at the panel
+   shape of the benchmark's ``hpcg160-spmv`` cell (HPCG's 27-point stencil at
+   160^3: panels (155601, 16, 256)), the 32^3 stencil's panel groups tiled to
+   that count: the encoding's E and fill, its derivation's seconds, both
+   kernels' ``ms`` beside their byte floors, partials bit-equal.
 4. ``spmv``, one line per matrix — the main path through the entry points a
    user calls: triplets from the port's seeded generators ->
    ``CBMatrix.from_coo`` -> ``build_super_streams`` -> ``.to()`` (CUDA by
@@ -32,9 +39,11 @@ the ``nvidia-smi`` line):
    ``cb_spmv`` call, so ``launches`` is per call. Then ``y`` is held
    against the float64 ``dense_oracle``, against ``impl="reference"`` on
    the card, a second run must be bit-equal, and each kernel is compared with
-   its plain version and timed at this matrix's shapes. Three matrices, one
-   dominated by each format, B = 16, float32, default thresholds and group
-   size, each with streams larger than the card's 50 MB L2. Then the whole
+   its plain version and timed at this matrix's shapes (the panel format's
+   padded and bitmap kernels both; ``cb_spmv`` runs the bitmap one). Three
+   matrices, one dominated by each format, B = 16, float32, default
+   thresholds and group size, each with streams larger than the card's 50 MB
+   L2. Then the whole
    call is timed with ``repro_torch.obs`` on (the default) and its launch
    accounting held to the wrappers' counters: after those calls, obs's
    ``repro.ops.spmv.launches`` / ``steps`` per format must equal each
@@ -400,15 +409,21 @@ DEV = torch.device("cuda")
 WRAPPERS = {
     "dense": cb_block_dense.block_dense_spmv_batched,
     "panel": cb_colagg.panel_spmv_batched,
+    "panel_bitmap": cb_colagg.panel_spmv_bitmap,
     "coo": cb_coo.coo_spmv_batched,
     "combine": cb_combine.segment_combine,
     "spmm": cb_spmm.super_tile_spmm,
 }
+# kernels the main path no longer launches, held and timed beside the one that replaced
+# them: cb_spmv runs the bitmap panel kernel on CUDA, the padded one is its bit-exact reference
+REFERENCE_KERNELS = frozenset({"panel"})
 KERNEL_INFO = {
     "dense": ("src/repro_torch/kernels/csrc/cb_block_dense.cu",
               "src/repro/kernels/cb_block_dense.py:53"),
     "panel": ("src/repro_torch/kernels/csrc/cb_colagg.cu",
               "src/repro/kernels/cb_colagg.py:57"),
+    "panel_bitmap": ("src/repro_torch/kernels/csrc/cb_colagg.cu",
+                     "src/repro/kernels/cb_colagg.py:57"),
     "coo": ("src/repro_torch/kernels/csrc/cb_coo.cu",
             "src/repro/kernels/cb_coo.py:71"),
     # not a TPU kernel: the XLA scatter-add around them, which CUDA must order itself
@@ -519,6 +534,17 @@ def panel_pair(panels, xg):
             lambda: cb_colagg.panel_spmv_plain(panels, xg))
 
 
+def panel_bitmap_pair(enc, xg):
+    return (lambda: cb_colagg.panel_spmv_bitmap(enc.cvals, enc.mask, xg),
+            lambda: cb_colagg.panel_spmv_bitmap_plain(enc.cvals, enc.mask, xg))
+
+
+def format_launches(counted: dict, fmt: str) -> int:
+    """A format's kernel launches: the panel format's are the bitmap kernel's on
+    the card (and the padded one's where a check runs it)."""
+    return counted[fmt] + (counted["panel_bitmap"] if fmt == "panel" else 0)
+
+
 def coo_pair(codes, vals, xidx, x, B):
     return (lambda: cb_coo.coo_spmv_batched(codes, vals, xidx, x, block_size=B),
             lambda: cb_coo.coo_spmv_plain(codes, vals, xidx, x, block_size=B))
@@ -577,6 +603,13 @@ def edge_grid(seed: int) -> int:
                         xg = payload((groups, W), torch.float32, integer)
                         k, p = panel_pair(payload((groups, B, W), dtype, integer), xg)
                         compare("panel", k(), p(), f"{tag} W={W}", exact=integer)
+                        sparse = payload((groups, B, W), dtype, integer)
+                        sparse *= (torch.rand((groups, B, W), generator=gen) < 0.2).to(DEV)
+                        enc = cb_colagg.compact_panels(sparse)
+                        k, p = panel_bitmap_pair(enc, xg)
+                        compare("panel_bitmap", k(), p(), f"{tag} W={W}", exact=integer)
+                        compare("panel_bitmap", k(), panel_pair(sparse, xg)[0](),
+                                f"{tag} W={W} against the padded kernel", exact=True)
                         rows = torch.randint(0, B, (groups, W), generator=gen)
                         cols = torch.randint(0, 1 << mask_bits, (groups, W), generator=gen)
                         codes = ((cols << mask_bits) | rows).to(torch.int32).to(DEV)
@@ -588,7 +621,7 @@ def edge_grid(seed: int) -> int:
                         xidx = xidx.masked_fill(vals == 0, 0).to(torch.int32)  # and xidx == 0
                         k, p = coo_pair(codes, vals, xidx, x, B)
                         compare("coo", k(), p(), f"{tag} W={W}", exact=integer)
-                        cases += 3
+                        cases += 4
         # an all-padding group: zero payload, brow 0, code 0
         z = torch.zeros
         compare("dense", *[f() for f in dense_pair(z((2, 4 * B, B), device=DEV),
@@ -597,12 +630,51 @@ def edge_grid(seed: int) -> int:
         compare("panel", *[f() for f in panel_pair(z((2, B, 24), device=DEV),
                                                    payload((2, 24), torch.float32, False))],
                 "all-padding", exact=True)
+        compare("panel_bitmap", *[f() for f in panel_bitmap_pair(
+            cb_colagg.compact_panels(z((2, B, 24), device=DEV)),
+            payload((2, 24), torch.float32, False))], "all-padding", exact=True)
         compare("coo", *[f() for f in coo_pair(z((2, 24), dtype=torch.int32, device=DEV),
                                                z((2, 24), device=DEV),
                                                z((2, 24), dtype=torch.int32, device=DEV),
                                                payload((24,), torch.float32, False), B)],
                 "all-padding", exact=True)
     return cases + combine_edge_grid(gen, payload) + spmm_edge_grid(gen, payload)
+
+
+def run_panel_layouts(seed: int) -> None:
+    """The padded and the bitmap panel kernels at ``hpcg160-spmv``'s panel shape:
+    the 32^3 stencil's panel groups tiled to the 155,601 of its 160^3 stencil,
+    a random x; held bit-equal, each timed beside its byte floor."""
+    n, groups = 32, 155601
+    rows, cols, vals = matrices.stencil_27(n)
+    cb = CBMatrix.from_coo(rows, cols, vals.astype(np.float32), (n ** 3, n ** 3),
+                           block_size=16, val_dtype=np.float32)
+    small = build_super_streams(cb).to(DEV).panel_vals
+    panels = small.repeat(-(-groups // small.shape[0]), 1, 1)[:groups].contiguous()
+    del small
+    xg = torch.randn((groups, panels.shape[2]), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = cb_colagg.compact_panels(panels)
+    torch.cuda.synchronize()
+    derive_s = time.perf_counter() - t0
+    out = torch.empty((groups, panels.shape[2] // 8, panels.shape[1]), device=DEV)
+    padded = lambda: cb_colagg.panel_spmv_batched(panels, xg, out=out)     # noqa: E731
+    bitmap = lambda: cb_colagg.panel_spmv_bitmap(enc.cvals, enc.mask, xg, out=out)  # noqa: E731
+    want = padded().clone()
+    if not torch.equal(bitmap(), want):
+        fail("panel_layouts: the bitmap kernel's partials are not bit-equal to the padded one's")
+    nnz = int((panels != 0).sum())
+    sizes = {"padded": nbytes(panels, xg, out), "bitmap": enc.nbytes + nbytes(xg, out)}
+    ms = {"padded": time_ms(padded), "bitmap": time_ms(bitmap)}
+    emit("panel_layouts", at=f"stencil_27({n}) panel groups tiled to {tuple(panels.shape)}",
+         E=enc.cvals.shape[2], fill=100 * nnz / panels.numel(), compact_fill=100 * nnz / enc.elems,
+         derive_s=derive_s,
+         bytes=sizes, ms=ms, bound_ms={k: b / HBM_BYTES_PER_S * 1e3 for k, b in sizes.items()},
+         TBps={k: sizes[k] / ms[k] / 1e9 for k in ms}, bit_equal=True)
+    del panels, xg, enc, out, want
+    torch.cuda.empty_cache()
 
 
 def at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
@@ -749,11 +821,12 @@ def check_accounting(tag, s) -> dict:
     here; fails on any difference."""
     calls = obs.counter("repro.ops.spmv.calls").value(impl="cuda")
     stats = ops.spmv_launch_stats(s)
+    wrapped = {k: w.launches for k, w in WRAPPERS.items()}
     got = {}
     for fmt in ("dense", "panel", "coo"):
         reg_launches = obs.counter("repro.ops.spmv.launches").value(format=fmt)
         reg_steps = obs.counter("repro.ops.spmv.steps").value(format=fmt)
-        want = (WRAPPERS[fmt].launches, calls * stats["launches"][fmt],
+        want = (format_launches(wrapped, fmt), calls * stats["launches"][fmt],
                 calls * stats["steps"][fmt])
         if (reg_launches, reg_launches, reg_steps) != want:
             fail(f"{tag}: obs counts {fmt} launches {reg_launches}, steps {reg_steps}; the "
@@ -823,10 +896,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
 
     # -- is y right? -----------------------------------------------------------
     stats = cb.stats()
-    present = {"dense": s.num_dense_groups, "panel": s.num_panel_groups,
-               "coo": s.num_coo_groups, "combine": 1}
-    for k, groups in present.items():
-        if groups and counted[k] < 1:
+    for k in present_kernels(s):
+        if counted[k] < 1:
             fail(f"{name}: kernel {k} has work but was not launched by cb_spmv")
     if counted["combine"] > 2:
         fail(f"{name}: the combine took {counted['combine']} launches, at most 2 by design")
@@ -856,6 +927,11 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
         pairs["panel"] = (panel_pair(s.panel_vals, xg_p), nbytes(s.panel_vals, xg_p) + npn * B * 4,
                           2 * s.panel_vals.numel(), tuple(s.panel_vals.shape),
                           (lambda: panel_library(s.panel_vals, xg_p), "torch.einsum"))
+        enc = cb_colagg.compact_panels(s.panel_vals)
+        pairs["panel_bitmap"] = (panel_bitmap_pair(enc, xg_p),
+                                 enc.nbytes + nbytes(xg_p) + npn * B * 4, 2 * enc.elems,
+                                 tuple(enc.cvals.shape),
+                                 (lambda: panel_library(s.panel_vals, xg_p), "torch.einsum"))
     if s.num_coo_groups:
         nco = s.coo_brow.numel()
         pairs["coo"] = (coo_pair(s.coo_codes, s.coo_vals, s.coo_xidx, x, B),
@@ -867,7 +943,8 @@ def run_matrix(name, heavy, call, make, shape, seed, per_kernel, launches):
         compare(k, got, want, f"{name} {shp}")
         if lib[0] is not None:              # the yardstick computes the same function
             compare(k + " library", lib[0]().reshape(want.shape), want, f"{name} {shp}")
-        lo, hi = {"dense": (0, nd), "panel": (nd, nd + npn), "coo": (nd + npn, None)}[k]
+        lo, hi = {"dense": (0, nd), "panel": (nd, nd + npn), "panel_bitmap": (nd, nd + npn),
+                  "coo": (nd + npn, None)}[k]
         parts[lo:hi] = got.reshape(-1, B)
         del got, want
     brow64 = prep.brow.long()
@@ -1123,7 +1200,7 @@ def run_dist(inputs, seed, launches, dist_launches, runs=DIST_RUNS) -> None:
                             if ln["launches"][k] < 1:
                                 fail(f"{tag}: rank {rank} has {k} work but did not launch it")
                         for f in ("dense", "panel", "coo"):
-                            if ln["obs_launches"][f] != ln["launches"][f]:
+                            if ln["obs_launches"][f] != format_launches(ln["launches"], f):
                                 fail(f"{tag}: rank {rank} obs counts {ln['obs_launches']}, the "
                                      f"wrappers {ln['launches']}")
                         if not ln["bit_equal"]:
@@ -3207,7 +3284,7 @@ def counted_run(tag, fn, present):
 
 def present_kernels(s) -> list[str]:
     """The kernels one ``cb_spmv`` on stream ``s`` launches."""
-    return [k for k, g in (("dense", s.num_dense_groups), ("panel", s.num_panel_groups),
+    return [k for k, g in (("dense", s.num_dense_groups), ("panel_bitmap", s.num_panel_groups),
                            ("coo", s.num_coo_groups), ("combine", 1)) if g]
 
 
@@ -3733,7 +3810,7 @@ def example_distributed_spmv(mod, out, per_kernel, counted) -> dict:
         fail(f"example distributed_spmv: nnz per rank {out['device_nnz']}, imbalance "
              f"{out['load_imbalance']}")
     for k in ("panel", "coo", "combine"):
-        if out["rank_launches"][k] < out["ranks"]:
+        if format_launches(out["rank_launches"], k) < out["ranks"]:
             fail(f"example distributed_spmv: {k} launched {out['rank_launches'][k]} times "
                  f"over {out['ranks']} ranks")
     rel = oracle_check("example distributed_spmv", rows, cols, vals, cb.shape, x_np,
@@ -3905,6 +3982,7 @@ def main() -> None:
     cases = edge_grid(args.seed)
     emit("edge_grid", cases=cases, tolerance=KERNEL_TOL,
          max_abs_err=dict(worst_err), max_rel_err=dict(worst_rel))
+    run_panel_layouts(args.seed)
 
     per_kernel = {k: [] for k in WRAPPERS}
     launches = {k: 0 for k in WRAPPERS}
@@ -3950,7 +4028,7 @@ def main() -> None:
 
     kernels = []
     for k in WRAPPERS:
-        if not launches[k] or not per_kernel[k]:
+        if not per_kernel[k] or not (launches[k] or k in REFERENCE_KERNELS):
             fail(f"kernel {k} was never launched on the main path")
         head = max(per_kernel[k], key=lambda r: r["bytes"])   # the matrix that loads it most
         source, replaces = KERNEL_INFO[k]

@@ -46,6 +46,7 @@ PRELOAD = ["repro_torch.core.distributed", "repro_torch.launch.mesh",
 atexit.register(multiprocessing.forkserver._forkserver._stop)
 KERNELS = {"dense": cb_block_dense.block_dense_spmv_batched,
            "panel": cb_colagg.panel_spmv_batched,
+           "panel_bitmap": cb_colagg.panel_spmv_bitmap,
            "coo": cb_coo.coo_spmv_batched,
            "combine": cb_combine.segment_combine}
 

@@ -912,14 +912,19 @@ def _scatter_from_index(arr) -> tuple[np.ndarray, np.ndarray]:
     return pos, (flat[pos] - 1).astype(np.int64)
 
 
+def _place(template: torch.Tensor, pos: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Zeros shaped and typed like ``template`` with ``values`` at flat ``pos``."""
+    out = torch.zeros(template.numel(), dtype=template.dtype, device=template.device)
+    if pos.numel():
+        out[pos] = values.to(template.dtype)
+    return out.view(template.shape)
+
+
 def _scatter_payload(template: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
                      vals: torch.Tensor) -> torch.Tensor:
     """Zeros shaped and typed like ``template`` with ``vals[src]`` at flat
     ``pos`` — one gather and one scatter on ``template``'s device."""
-    out = torch.zeros(template.numel(), dtype=template.dtype, device=template.device)
-    if pos.numel():
-        out[pos] = vals[src].to(template.dtype)
-    return out.view(template.shape)
+    return _place(template, pos, vals[src])
 
 
 def _values_on(canonical_vals, val_dtype: np.dtype, device: torch.device) -> torch.Tensor:
@@ -942,9 +947,11 @@ class SuperStreamUpdater:
     ``apply(canonical_vals)`` returns a stream bit-identical to
     ``build_super_streams`` on the same structure with those values
     (values in the canonical ``to_coo`` order), at the cost of one scatter
-    per payload on the template's device. ``.to(device)`` moves the
-    template and the index tensors; ``eq=False`` keeps the object
-    identity-hashable.
+    per payload on the template's device, and one more of the gathered
+    panel values into the panels' bitmap encoding
+    (``cb_colagg.compact_panels``), whose mask and value places the
+    structure fixes: the new stream's CUDA calls read it and derive none. ``.to(device)`` moves the template and the index tensors;
+    ``eq=False`` keeps the object identity-hashable.
     """
 
     template: SuperBlockStreams   # real metadata, zeroed payloads
@@ -955,42 +962,55 @@ class SuperStreamUpdater:
     panel_src: torch.Tensor
     coo_pos: torch.Tensor
     coo_src: torch.Tensor
+    cvals_pos: torch.Tensor       # (k,) int64: where panel_src's values sit in panel_cvals
+    panel_mask: torch.Tensor      # (gp, B, W // 8) uint8: the encoding's lane mask
+    panel_cvals: torch.Tensor     # (gp, B, E) zeros: the encoding's values, as the payloads
 
     def to(self, device=None) -> "SuperStreamUpdater":
         """A copy whose template and index tensors live on ``device``."""
         dev = resolve_device(device)
         idx = {f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
-               if f.name.endswith(("_pos", "_src"))}
+               if f.name.endswith(("_pos", "_src", "_mask", "_cvals"))}
         return dataclasses.replace(self, template=self.template.to(dev), **idx)
 
     def apply(self, canonical_vals) -> SuperBlockStreams:
         """The stream for fresh values: numpy or a tensor, scattered on the
         template's device. The new stream shares the template's block rows
         and combine plan (they depend on the structure only), so its first
-        product sorts nothing on the host."""
-        from repro_torch.kernels import ops
+        product sorts nothing on the host, and its panels' bitmap encoding."""
+        from repro_torch.kernels import cb_colagg, ops
 
         t = self.template
         vals = _values_on(canonical_vals, self.val_dtype, t.device)
+        panel = vals[self.panel_src]                # gathered once, placed twice
         new = dataclasses.replace(
             t,
             dense_tiles=_scatter_payload(t.dense_tiles, self.dense_pos, self.dense_src, vals),
-            panel_vals=_scatter_payload(t.panel_vals, self.panel_pos, self.panel_src, vals),
+            panel_vals=_place(t.panel_vals, self.panel_pos, panel),
             coo_vals=_scatter_payload(t.coo_vals, self.coo_pos, self.coo_src, vals),
         )
-        ops.share_prepared(t, new)
+        cvals = _place(self.panel_cvals, self.cvals_pos, panel)
+        ops.share_prepared(t, new, cb_colagg.CompactPanels(cvals, self.panel_mask))
         return new
 
 
 def _super_updater_from_shadow(shadow: SuperBlockStreams, vdt: np.dtype) -> SuperStreamUpdater:
+    from repro_torch.kernels import cb_colagg
+
     idx = {}
     for name, field in (("dense", "dense_tiles"), ("panel", "panel_vals"), ("coo", "coo_vals")):
         idx[f"{name}_pos"], idx[f"{name}_src"] = _index_tensors(
             *_scatter_from_index(getattr(shadow, field).numpy()))
+    # compaction keeps the panels' values in flat order, so the k-th value of
+    # the encoding is the k-th of the panels, from panel_src[k]
+    enc = cb_colagg.compact_panels(shadow.panel_vals, itemsize=vdt.itemsize)
+    (idx["cvals_pos"],) = _index_tensors(np.flatnonzero(enc.cvals.numpy()))
     template = dataclasses.replace(
         shadow, **{f: torch.from_numpy(np.zeros(tuple(getattr(shadow, f).shape), vdt))
                    for f in _PAYLOAD_FIELDS})
-    return SuperStreamUpdater(template=template, val_dtype=vdt, **idx)
+    return SuperStreamUpdater(
+        template=template, val_dtype=vdt, panel_mask=enc.mask,
+        panel_cvals=torch.from_numpy(np.zeros(tuple(enc.cvals.shape), vdt)), **idx)
 
 
 def super_stream_updater(cb: CBMatrix, group_size: int | None = None) -> SuperStreamUpdater:

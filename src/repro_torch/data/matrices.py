@@ -124,6 +124,28 @@ def pruned_weight(m, n, block_size=16, block_sparsity=0.85, seed=0):
     return _dedup(rows, cols, m, n, rng)
 
 
+def stencil_27(nx, ny=None, nz=None):
+    """HPCG's 27-point stencil on an nx x ny x nz grid (ny, nz default to nx):
+    point (ix, iy, iz) is row iz*nx*ny + iy*nx + ix, 26 on the diagonal and
+    -1 for each neighbour of its 3 x 3 x 3 box inside the grid. Triplets are
+    sorted by (row, col); no seed (the matrix has no random part). A port-only
+    family: the column-aggregated panels of the paper's CSR regime at scale."""
+    ny, nz = ny or nx, nz or nx
+    grid = np.arange(nx * ny * nz, dtype=np.int64).reshape(nz, ny, nx)
+    rows, cols = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                src = grid[max(0, -dz):nz - max(0, dz), max(0, -dy):ny - max(0, dy),
+                           max(0, -dx):nx - max(0, dx)]
+                rows.append(src.reshape(-1))
+                cols.append(src.reshape(-1) + dz * nx * ny + dy * nx + dx)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    return rows, cols, np.where(rows == cols, 26.0, -1.0)
+
+
 def spd_banded(m, n=None, bandwidth=9, fill=0.7, seed=0):
     """Symmetric positive-definite banded/FEM matrix (the solver corpus).
 

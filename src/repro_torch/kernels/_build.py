@@ -103,11 +103,12 @@ def _declare(lib) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.cb_dense_spmv.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.cb_panel_spmv.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    lib.cb_panel_spmv_bitmap.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
     lib.cb_coo_spmv.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
     lib.cb_segment_sum.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64, i32, ptr]
     lib.cb_spmm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
-    for fn in (lib.cb_dense_spmv, lib.cb_panel_spmv, lib.cb_coo_spmv, lib.cb_segment_sum,
-               lib.cb_spmm):
+    for fn in (lib.cb_dense_spmv, lib.cb_panel_spmv, lib.cb_panel_spmv_bitmap, lib.cb_coo_spmv,
+               lib.cb_segment_sum, lib.cb_spmm):
         fn.restype = i32
     lib.cb_error_string.argtypes = [i32]
     lib.cb_error_string.restype = ctypes.c_char_p

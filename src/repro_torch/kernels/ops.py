@@ -37,7 +37,18 @@ package's series: ``launches{format=gather}`` (one x gather per present
 dense or panel format, recorded as 0 where there is none),
 ``{format=combine}`` (the combine's passes) and, for ``cb_spmv``,
 ``{format=fill}`` (y's zero-fill). Each runs under one ``obs`` span of its
-own name, which a recording ``torch.profiler`` also sees.
+own name, which a recording ``torch.profiler`` also sees. They also record
+``compact_elems{format=panel}``: the value slots the bitmap panel kernel
+read (0 on the CPU path, or without a panel).
+
+On CUDA tensors the panel format runs on the bitmap encoding of the panels
+(``cb_colagg.compact_panels``): derived from the stream's own payload on its
+first call, or handed over by a value updater, which scatters fresh values
+straight into it. For finite x the partials, and so y, are the bits the
+padded panels give, as on the CPU path. Where x holds an inf or a NaN, a
+row reads it only at its own non-zeros on CUDA, while the CPU path and
+``impl="reference"`` also add 0 * x at the padding lanes of the row's panel
+group, so CUDA's y can be finite where the CPU's is NaN.
 """
 from __future__ import annotations
 
@@ -204,6 +215,7 @@ class _Prepared:
     stats: dict                                 # spmv_launch_stats, for _record_call
     engine: dict                                # entry -> launches beside the format kernels
     records: dict = dataclasses.field(default_factory=dict)   # _record_call's batches
+    panel: tuple | None = None                  # (payload, its _version, its bitmap encoding)
 
 
 def _engine_launches(stats: dict, combine, num_slots: int, m: int) -> dict:
@@ -238,7 +250,7 @@ def _prepare(streams, group_size) -> _Prepared:
     return cache[key]
 
 
-def share_prepared(template, stream) -> None:
+def share_prepared(template, stream, panel: cb_colagg.CompactPanels | None = None) -> None:
     """Hand ``stream`` what ``template`` derived for its first call.
 
     ``stream`` is a packed ``SuperBlockStreams`` or ``SuperTileStream`` with
@@ -246,10 +258,16 @@ def share_prepared(template, stream) -> None:
     The block rows, tile route and combine plan depend on the metadata
     only, so ``stream`` gets the template's (computed now if the template
     has none yet) with its own payloads behind them: no second host sort.
+    The panels' bitmap encoding depends on the payload: ``panel`` is
+    ``stream``'s own (an updater scatters its values into it), and without
+    one ``stream`` derives its own at its first CUDA call, never the
+    template's.
     """
     if isinstance(template, SuperBlockStreams):
         prep = _prepare(template, None)
-        stream.__dict__["_prepared"] = {None: dataclasses.replace(prep, sup=stream)}
+        vals = stream.panel_vals
+        own = None if panel is None else (vals, vals._version, panel)
+        stream.__dict__["_prepared"] = {None: dataclasses.replace(prep, sup=stream, panel=own)}
     else:
         _, route = _prepare_tiles(template, None)
         stream.__dict__["_prepared"] = {None: (stream, route)}
@@ -260,9 +278,33 @@ def _gather(x: torch.Tensor, xidx: torch.Tensor) -> torch.Tensor:
     return torch.index_select(x, 0, xidx.reshape(-1)).reshape(xidx.shape)
 
 
+def _panel_encoding(prep: _Prepared) -> cb_colagg.CompactPanels | None:
+    """The bitmap encoding the panel kernel reads in place of
+    ``prep.sup.panel_vals``; None off CUDA or where the stream has no panel.
+
+    Derived on the device the first time it is asked for (unless
+    ``share_prepared`` handed one over), and again only for another payload
+    tensor or one changed in place since (its ``_version``): a stream given
+    another's prepared state never reads that one's encoding.
+    """
+    vals = prep.sup.panel_vals
+    if vals.device.type != "cuda" or not prep.sup.num_panel_groups:
+        return None
+    if prep.panel is None or prep.panel[0] is not vals or prep.panel[1] != vals._version:
+        prep.panel = (vals, vals._version, cb_colagg.compact_panels(vals))
+    return prep.panel[2]
+
+
+def _compact_elems(prep: _Prepared) -> int:
+    """The value slots the bitmap panel kernel reads a call; 0 where it does not run."""
+    enc = _panel_encoding(prep)
+    return enc.elems if enc is not None else 0
+
+
 def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tensor:
     """y += A @ x in place: one kernel per present format (dense and panel on
-    a gathered x, COO on x itself), then the combine."""
+    a gathered x, COO on x itself), then the combine. On CUDA the panel
+    kernel reads the bitmap encoding (``_panel_encoding``)."""
     s = prep.sup
     B = s.block_size
     x32 = x.to(torch.float32).contiguous()
@@ -273,9 +315,12 @@ def _accumulate(y: torch.Tensor, prep: _Prepared, x: torch.Tensor) -> torch.Tens
             s.dense_tiles, _gather(x32, s.dense_xidx),
             out=parts[:nd].view(s.dense_xidx.shape))
     if s.num_panel_groups:
-        cb_colagg.panel_spmv_batched(
-            s.panel_vals, _gather(x32, s.panel_xidx),
-            out=parts[nd:nd + npn].view(*s.panel_brow.shape, B))
+        xg, out = _gather(x32, s.panel_xidx), parts[nd:nd + npn].view(*s.panel_brow.shape, B)
+        enc = _panel_encoding(prep)
+        if enc is None:
+            cb_colagg.panel_spmv_batched(s.panel_vals, xg, out=out)
+        else:
+            cb_colagg.panel_spmv_bitmap(enc.cvals, enc.mask, xg, out=out)
     if s.num_coo_groups:
         cb_coo.coo_spmv_batched(
             s.coo_codes, s.coo_vals, s.coo_xidx, x32, block_size=B,
@@ -303,7 +348,7 @@ def _check_impl_device(streams, impl, device) -> None:
 
 
 def _call_batch(entry: str, stats: dict | None, impl: str, plan,
-                engine: dict | None = None) -> obs.Batch:
+                engine: dict | None = None, compact: int | None = None) -> obs.Batch:
     """One call's launch accounting, as registry updates.
 
     Every call counts ``calls{impl}``; only the CUDA engine launches kernels,
@@ -312,7 +357,8 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan,
     ``"pallas"``), and ``engine``'s launches beside the format kernels
     (``_engine_launches``) as more ``launches`` series; ``gather`` even at 0,
     so a reader can tell a call that gathered nothing from a program that does
-    not count its gathers. With a plan carrying a
+    not count its gathers; ``compact`` as ``compact_elems{format=panel}``, even
+    at 0, where given. With a plan carrying a
     ``structure_hash`` an SpMV also records the ``repro.autotune.exec.*``
     measured-vs-predicted pair: both sides accumulate once per call, so their
     ratio is the cost model's per-call fidelity.
@@ -328,6 +374,8 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan,
     for kind, n in (engine or {}).items():
         if n or kind == "gather":
             batch.inc(f"repro.ops.{entry}.launches", n, format=kind)
+    if compact is not None:
+        batch.inc(f"repro.ops.{entry}.compact_elems", compact, format="panel")
     label = getattr(plan, "structure_hash", None)
     if label is not None and entry in ("spmv", "spmv_into"):
         label = label[:12]
@@ -341,7 +389,8 @@ def _call_batch(entry: str, stats: dict | None, impl: str, plan,
 
 
 def _record_call(entry: str, stats: dict | None, impl: str, plan,
-                 cache: dict | None = None, engine: dict | None = None) -> None:
+                 cache: dict | None = None, engine: dict | None = None,
+                 compact: int | None = None) -> None:
     """Emit one call's launch accounting (``_call_batch``) to the default registry.
 
     Runs on the host after a successful dispatch and reads shape metadata
@@ -352,13 +401,14 @@ def _record_call(entry: str, stats: dict | None, impl: str, plan,
     per instrument.
     """
     if cache is None:
-        _call_batch(entry, stats, impl, plan, engine).record()
+        _call_batch(entry, stats, impl, plan, engine, compact).record()
         return
     key = (entry, impl, getattr(plan, "structure_hash", None),
-           getattr(plan, "predicted_padded_elems", None), getattr(plan, "predicted_steps", None))
+           getattr(plan, "predicted_padded_elems", None), getattr(plan, "predicted_steps", None),
+           compact)
     batch = cache.get(key)
     if batch is None:
-        batch = cache[key] = _call_batch(entry, stats, impl, plan, engine)
+        batch = cache[key] = _call_batch(entry, stats, impl, plan, engine, compact)
     batch.record()
 
 
@@ -411,14 +461,15 @@ def cb_spmv(
         x, group_size = _enter(streams, x, impl, group_size, plan, device)
         if impl == "reference":
             sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
-            y, stats, cache, engine = sub(streams, x), None, None, None
+            y, stats, cache, engine, compact = sub(streams, x), None, None, None, None
         else:
             prep = _prepare(streams, group_size)
             y = _accumulate(torch.zeros(streams.m, dtype=torch.float32, device=x.device),
                             prep, x)
             stats, cache, engine = prep.stats, prep.records, prep.engine["spmv"]
+            compact = _compact_elems(prep)
         if obs.is_enabled():
-            _record_call("spmv", stats, impl, plan, cache, engine)
+            _record_call("spmv", stats, impl, plan, cache, engine, compact)
         return y
 
 
@@ -450,7 +501,7 @@ def cb_spmv_into(
         if impl == "reference":
             sub = ref.super_spmv if isinstance(streams, SuperBlockStreams) else ref.cb_spmv
             y_acc.add_(sub(streams, x))
-            stats, cache, engine = None, None, None
+            stats, cache, engine, compact = None, None, None, None
         else:
             if y_acc.dtype != torch.float32 or not y_acc.is_contiguous():
                 raise errors.InvalidArgError(
@@ -458,8 +509,9 @@ def cb_spmv_into(
             prep = _prepare(streams, group_size)
             _accumulate(y_acc, prep, x)
             stats, cache, engine = prep.stats, prep.records, prep.engine["spmv_into"]
+            compact = _compact_elems(prep)
         if obs.is_enabled():
-            _record_call("spmv_into", stats, impl, plan, cache, engine)
+            _record_call("spmv_into", stats, impl, plan, cache, engine, compact)
         return y_acc
 
 

@@ -9,6 +9,7 @@ unchanged; only the inputs are built here with the port alone
 parity tests hold bit-equal to the JAX package's), and the float64 oracle is
 the port's ``core.spmv_ref.dense_oracle``. Without a card every case skips.
 """
+import collections
 import dataclasses
 import json
 
@@ -23,6 +24,7 @@ from repro_torch.core import streams as tstreams
 from repro_torch.data import matrices
 from repro_torch.kernels import cb_block_dense as t_dense
 from repro_torch.kernels import cb_colagg as t_panel
+from repro_torch.kernels import cb_combine as t_combine
 from repro_torch.kernels import cb_coo as t_coo
 from repro_torch.kernels import cb_spmm as t_spmm
 from repro_torch.kernels import ops as tops
@@ -173,6 +175,200 @@ def test_coo_kernel_reads_x_by_index_on_the_card(case, dtype):
     assert got.abs().sum() > 0
 
 
+# -- tests/test_torch_panel_compact.py: the bitmap panel kernel -----------------------
+
+def _stencil_cb(n):
+    rows, cols, vals = matrices.stencil_27(n)
+    return CBMatrix.from_coo(rows, cols, vals.astype(np.float32), (n ** 3, n ** 3),
+                             block_size=16, val_dtype=np.float32)
+
+
+def _synthetic_panels(B, W, density, groups=5, seed=3):
+    """Random panels at a given share of filled lanes: rows that cross several
+    32-slot stretches, passes and 32-value pieces of ``cvals``."""
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.randn((groups, B, W), generator=g)
+    return vals * (torch.rand((groups, B, W), generator=g) < density)
+
+
+BITMAP_CASES = [("stencil", 32), ("banded", 24), ("bucket_widths", 8, True),
+                ("block_clustered", 16), ("power_law", 24), ("empty_rows_cols", 16),
+                ("synthetic", 16, 8 * 600, 0.3), ("synthetic", 24, 264, 1.0),
+                ("synthetic", 8, 8 * 129, 0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BITMAP_CASES, ids=["-".join(map(str, c)) for c in BITMAP_CASES])
+def test_bitmap_panel_kernel_bit_equal_to_the_padded_on_the_card(case, dtype):
+    """On random (not integer) payloads and x: the encoding derived on the card
+    rebuilds the panels, and the bitmap kernel's partials are
+    ``torch.equal`` to the padded kernel's."""
+    _need_card()
+    if case[0] == "synthetic":
+        panels = _synthetic_panels(*case[1:]).to(dtype).cuda()
+        xg = torch.randn(panels.shape[0], panels.shape[2], device="cuda")
+    else:
+        cb = _stencil_cb(case[1]) if case[0] == "stencil" else _scenario(*case)[2]
+        s = tstreams.build_super_streams(cb, group_size=None if case[0] == "stencil" else 4)
+        s = s.to("cuda")
+        assert s.num_panel_groups
+        panels = s.panel_vals.to(dtype)
+        xg = torch.randn(s.n, device="cuda")[s.panel_xidx.long()]
+    enc = t_panel.compact_panels(panels)
+    assert torch.equal(t_panel.panel_decode(enc.cvals, enc.mask), panels)
+    before = t_panel.panel_spmv_bitmap.launches
+    got = t_panel.panel_spmv_bitmap(enc.cvals, enc.mask, xg)
+    assert t_panel.panel_spmv_bitmap.launches == before + 1
+    want = t_panel.panel_spmv_batched(panels, xg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _padded_call(s, x):
+    """y = A x as ``_accumulate`` made it before the bitmap layout: the padded
+    panel kernel, the other formats' kernels, the same combine."""
+    prep = tops._prepare(s, None)
+    B = s.block_size
+    parts = torch.empty((prep.brow.numel(), B), dtype=torch.float32, device=x.device)
+    nd, npn = s.dense_brow.numel(), s.panel_brow.numel()
+    if s.num_dense_groups:
+        t_dense.block_dense_spmv_batched(s.dense_tiles, tops._gather(x, s.dense_xidx),
+                                         out=parts[:nd].view(s.dense_xidx.shape))
+    t_panel.panel_spmv_batched(s.panel_vals, tops._gather(x, s.panel_xidx),
+                               out=parts[nd:nd + npn].view(*s.panel_brow.shape, B))
+    if s.num_coo_groups:
+        t_coo.coo_spmv_batched(s.coo_codes, s.coo_vals, s.coo_xidx, x, block_size=B,
+                               out=parts[nd + npn:].view(*s.coo_brow.shape, B))
+    return t_combine.segment_combine(torch.zeros(s.m, dtype=torch.float32, device=x.device),
+                                     parts, prep.brow, B, prep.combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", ["stencil", "banded"])
+def test_cb_spmv_on_bitmap_panels_is_bit_equal_to_the_padded_path_on_the_card(structure):
+    """``cb_spmv`` runs the bitmap kernel, and its y is bit-equal to a y
+    assembled from the padded partials through the same ``segment_combine``."""
+    _need_card()
+    cb = _stencil_cb(32) if structure == "stencil" else _scenario("banded", 16)[2]
+    s = tstreams.build_super_streams(cb).to("cuda")
+    x = torch.randn(s.n, device="cuda")
+    before = t_panel.panel_spmv_bitmap.launches
+    y = tops.cb_spmv(s, x)
+    assert t_panel.panel_spmv_bitmap.launches == before + 1
+    assert tops._panel_encoding(tops._prepare(s, None)) is not None
+    assert torch.equal(y, _padded_call(s, x))
+    y_acc = torch.ones(s.m, device="cuda")
+    assert torch.equal(tops.cb_spmv_into(y_acc, s, x), torch.ones(s.m, device="cuda") + y)
+
+
+@pytest.mark.cuda
+def test_an_updated_stream_reads_its_own_bitmap_encoding_on_the_card(monkeypatch):
+    """The updater's template (zero payload) runs first and derives its own
+    encoding; ``apply(v)`` hands the new stream the template's prepared state
+    and its own encoding, scattered from v (it derives none), and its product
+    is bit-equal to a fresh build's: it never reads the template's encoding."""
+    _need_card()
+    cb = _stencil_cb(16)
+    upd = tstreams.super_stream_updater(cb).to("cuda")
+    x = torch.randn(cb.shape[1], device="cuda")
+    assert not tops.cb_spmv(upd.template, x).any()
+    v = np.random.default_rng(5).uniform(0.5, 2.0, cb.nnz).astype(np.float32)
+    new = upd.apply(v)
+    with monkeypatch.context() as m:
+        m.setattr(t_panel, "compact_panels", None)          # a derivation would fail here
+        y_new = tops.cb_spmv(new, x)
+    fresh = tstreams.build_super_streams(cb.update_values(v)).to("cuda")
+    y_fresh = tops.cb_spmv(fresh, x)
+    assert y_new.any() and torch.equal(y_new, y_fresh)
+    enc_new = tops._panel_encoding(tops._prepare(new, None))
+    enc_fresh = tops._panel_encoding(tops._prepare(fresh, None))
+    assert torch.equal(enc_new.cvals, enc_fresh.cvals) and torch.equal(enc_new.mask, enc_fresh.mask)
+
+
+@pytest.mark.cuda
+def test_the_bitmap_wrapper_refuses_misaligned_storage_on_the_card():
+    """``mask`` and ``cvals`` one byte (one value) past an aligned base: the
+    wrapper refuses both before the kernel's 16-byte copies could fault."""
+    _need_card()
+    enc = t_panel.compact_panels(_synthetic_panels(16, 64, 0.3).cuda())
+    xg = torch.randn(enc.mask.shape[0], 64, device="cuda")
+    buf = torch.empty(enc.mask.numel() + 1, dtype=torch.uint8, device="cuda")
+    mask = buf[1:].view(enc.mask.shape)
+    mask.copy_(enc.mask)
+    assert mask.is_contiguous() and mask.data_ptr() % 16 == 1
+    with pytest.raises(Exception, match="mask: storage must be 16-byte aligned"):
+        t_panel.panel_spmv_bitmap(enc.cvals, mask, xg)
+    cbuf = torch.empty(enc.cvals.numel() + 1, device="cuda")
+    cvals = cbuf[1:].view(enc.cvals.shape)
+    cvals.copy_(enc.cvals)
+    with pytest.raises(Exception, match="cvals: storage must be 16-byte aligned"):
+        t_panel.panel_spmv_bitmap(cvals, enc.mask, xg)
+    torch.cuda.synchronize()
+
+
+TRAP_RUN = """
+import torch
+from repro_torch.kernels import cb_colagg
+enc = cb_colagg.compact_panels(torch.eye(16).repeat(3, 1, {w} // 16).cuda())
+mask = enc.mask.clone()
+if {bad}:
+    mask[1, 5] = 255                 # eight lanes a slot: more than the row's E values
+out = cb_colagg.panel_spmv_bitmap(enc.cvals, mask, torch.ones(3, {w}, device="cuda"))
+torch.cuda.synchronize()
+print("no trap")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 8 * 600], ids=["staged", "in_place"])
+def test_the_bitmap_kernel_stops_on_a_mask_past_its_row_on_the_card(width):
+    """A mask that holds more lanes than a row of ``cvals`` has values stops
+    the kernel (``__trap``) in both of its forms, rather than read past the
+    row; the fault poisons the context, so it runs in a process of its own."""
+    _need_card()
+    import subprocess
+    import sys
+
+    def run(bad):
+        return subprocess.run([sys.executable, "-c", TRAP_RUN.format(w=width, bad=bad)],
+                              capture_output=True, text=True, timeout=300)
+
+    ok, proc = run(False), run(True)
+    assert ok.returncode == 0 and "no trap" in ok.stdout, ok.stdout + ok.stderr
+    assert proc.returncode != 0 and "no trap" not in proc.stdout, proc.stdout + proc.stderr
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr
+
+
+@pytest.mark.cuda
+def test_an_inf_at_a_padding_lane_stays_out_of_the_bitmap_partials_on_the_card():
+    """Pins how the layouts differ on non-finite x: an inf in x at a lane a
+    row's group holds but the row does not makes the padded partial NaN
+    (0 * inf) and leaves the bitmap one finite, so ``cb_spmv``'s y on the card
+    is finite there where the CPU path's is NaN; elsewhere they agree."""
+    _need_card()
+    s = tstreams.build_super_streams(_stencil_cb(8))
+    x = torch.randn(s.n, generator=torch.Generator().manual_seed(2))
+    held = (s.panel_vals != 0).any(1, keepdim=True) & (s.panel_xidx != 0).unsqueeze(1)
+    g, r, lane = ((s.panel_vals == 0) & held).nonzero()[0].tolist()   # another row's lane
+    col = int(s.panel_xidx[g, lane])
+    x[col] = float("inf")
+    sc, xc = s.to("cuda"), x.cuda()
+    enc = tops._panel_encoding(tops._prepare(sc, None))
+    xg = xc[sc.panel_xidx.long()]
+    padded = t_panel.panel_spmv_batched(sc.panel_vals, xg)
+    bitmap = t_panel.panel_spmv_bitmap(enc.cvals, enc.mask, xg)
+    assert padded[g, lane // 8, r].isnan() and bitmap[g, lane // 8, r].isfinite()
+    y_card, y_cpu = tops.cb_spmv(sc, xc).cpu(), tops.cb_spmv(s, x, device="cpu")
+    differ = y_card.isfinite() & y_cpu.isnan()
+    assert differ.any()
+    keep = ~differ
+    assert torch.equal(y_card[keep].isnan(), y_cpu[keep].isnan())
+    assert torch.equal(y_card[keep].isinf(), y_cpu[keep].isinf()) and y_cpu.isinf().any()
+    assert torch.allclose(y_card[keep & y_cpu.isfinite()], y_cpu[keep & y_cpu.isfinite()],
+                          rtol=1e-5, atol=1e-5)
+
+
 # -- tests/test_torch_tracing.py: every kernel a call launches, in the registry -------
 
 def _hub_with_a_dense_block(seed=0):
@@ -232,6 +428,46 @@ def test_registry_launches_equal_the_profilers_kernels_on_the_card(entry, tmp_pa
     # the COO kernel reads x itself, so no gather is counted or run for it
     assert obs.counter(f"repro.ops.{entry}.launches").value(format="gather") == calls
     assert launches / calls == len(kernels) / calls == (6 if entry == "spmv" else 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["spmv", "spmv_into"])
+def test_registry_launches_equal_the_profilers_kernels_on_a_panel_stream(entry, tmp_path):
+    """On the 32^3 stencil (panels and COO): the registry's launches per call are
+    the kernels the profiler sees, one of them the bitmap panel kernel, and
+    ``compact_elems{format=panel}`` counts its value slots every call."""
+    _need_card()
+    s = tstreams.build_super_streams(_stencil_cb(32)).to("cuda")
+    x = torch.randn(s.n, device="cuda")
+    y = torch.zeros(s.m, device="cuda")
+
+    def call():
+        if entry == "spmv":
+            return tops.cb_spmv(s, x)
+        return tops.cb_spmv_into(y, s, x)
+
+    call()
+    enc = tops._panel_encoding(tops._prepare(s, None))
+    torch.cuda.synchronize()
+    obs.reset()
+    calls = 8
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    path = tmp_path / "calls.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    launches = obs.counter(f"repro.ops.{entry}.launches")
+    assert launches.value(format="panel") == calls
+    assert obs.counter(f"repro.ops.{entry}.compact_elems").value(format="panel") == \
+        calls * enc.elems > 0
+    seen = collections.Counter(k.split("(")[0] for k in kernels)
+    assert sum("cb_panel_kernel_bitmap" in k for k in kernels) == calls, seen
+    assert sum("cb_panel_kernel" in k for k in kernels) == calls, seen  # the padded one ran not
+    assert launches.total() == len(kernels), seen
 
 
 # -- tests/test_torch_spmv.py: cb_spmv end to end -------------------------------------
@@ -353,11 +589,15 @@ def test_timed_plan_search_runs_the_kernels_on_the_card():
     from repro_torch.autotune import SearchSettings
 
     (rows, cols, vals), shape, _ = _scenario("power_law", 16)
-    before = t_coo.coo_spmv_batched.launches + t_panel.panel_spmv_batched.launches
+    def format_launches():
+        return (t_coo.coo_spmv_batched.launches + t_panel.panel_spmv_batched.launches
+                + t_panel.panel_spmv_bitmap.launches)
+
+    before = format_launches()
     plan = CBMatrix.plan_for(rows, cols, vals, shape,
                              settings=SearchSettings(mode="timed", timing_reps=3))
     assert plan.mode == "timed" and plan.t_spmv > 0
-    assert t_coo.coo_spmv_batched.launches + t_panel.panel_spmv_batched.launches > before
+    assert format_launches() > before
     cb = CBMatrix.from_plan(rows, cols, vals, shape, plan)
     s = tstreams.build_super_streams(cb, group_size=plan.group_size).to()
     x = np.random.default_rng(3).standard_normal(shape[1]).astype(np.float32)

@@ -164,7 +164,8 @@ def test_distributed_spmv_matches_the_reference(tmp_path):
     assert out["device_nnz"] == want["device_nnz"].tolist()
     assert out["load_imbalance"] == float(want["load_imbalance"])
     assert out["ranks"] == 8 and out["ranks_agree"] and not out["one_card"]
-    assert out["rank_launches"] == {"dense": 0, "panel": 0, "coo": 0, "combine": 0}
+    assert out["rank_launches"] == {"dense": 0, "panel": 0, "panel_bitmap": 0, "coo": 0,
+                                    "combine": 0}
     y, y_ref = out["y"], want["y"]
     assert y.shape == y_ref.shape
     assert np.abs(y - y_ref).max() <= 1e-5 * np.abs(y_ref).max()

@@ -62,6 +62,7 @@ KEPT = {"CB001": "cb001", "CB002": "cb002", "CB301": "cb301",
         "CB302": "kernels/cb302", "CB401": "cb401", "CB501": "cb501"}
 # the port's deliberate host reads on launch paths (each a CB211 pragma)
 DELIBERATE_READS = {
+    "src/repro_torch/kernels/cb_colagg.py",     # compact_panels: E, once per encoding
     "src/repro_torch/kernels/cb_combine.py",    # plan_combine: the host sort, at plan time
     "src/repro_torch/models/sharding.py",       # _staged: gloo takes CUDA tensors via the host
     "src/repro_torch/serving/engine.py",        # _tick: the argmax, read back once a tick
@@ -98,7 +99,7 @@ def test_port_is_lint_clean():
 
 def test_deliberate_reads_are_the_pragmas():
     """Each CB211 pragma in the port silences a read that fires, and they sit
-    where the deliberate reads are (seven lines in six files)."""
+    where the deliberate reads are (eight lines in seven files)."""
     pragmas = {}
     for path in analysis.iter_python_files([SRC_PORT]):
         with open(path) as f:
@@ -106,7 +107,7 @@ def test_deliberate_reads_are_the_pragmas():
         if n:
             pragmas[os.path.relpath(path, REPO_ROOT).replace(os.sep, "/")] = n
     assert set(pragmas) == DELIBERATE_READS
-    assert _lint([SRC_PORT]).suppressed == sum(pragmas.values()) == 7
+    assert _lint([SRC_PORT]).suppressed == sum(pragmas.values()) == 8
 
 
 def test_checked_in_baseline_is_empty():
@@ -212,7 +213,7 @@ def test_cli_clean_exit_and_json():
 def test_cli_default_is_the_port_and_bad_flags_exit_2():
     proc = _cli()
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "0 finding(s)" in proc.stdout and "7 suppressed" in proc.stdout
+    assert "0 finding(s)" in proc.stdout and "8 suppressed" in proc.stdout
     assert _cli("--no-such-flag").returncode == 2
 
 

@@ -24,6 +24,7 @@ PORT_ONLY_SPANS = frozenset({
 })
 PORT_ONLY_LAUNCHES = frozenset({"gather", "combine", "fill"})   # repro.ops.*.launches{format}
 PORT_ONLY_GAUGES = frozenset({"repro.streams.nnz"})             # set per build_super_streams
+PORT_ONLY_COUNTERS = frozenset({"compact_elems"})                # repro.ops.*.compact_elems{format}
 REFERENCE_ONLY_GAUGE = "group_size"                             # repro.ops.{entry}.group_size
 
 
@@ -33,15 +34,16 @@ def shared_spans(names) -> list:
 
 
 def shared_snapshot(snap: dict) -> dict:
-    """An obs snapshot without the port-only ``launches`` series and
-    ``repro.streams.nnz`` gauge, and the reference-only ``group_size``
-    gauges (either package's snapshot)."""
+    """An obs snapshot without the port-only ``launches`` series,
+    ``compact_elems`` counters and ``repro.streams.nnz`` gauge, and the
+    reference-only ``group_size`` gauges (either package's snapshot)."""
     out = {}
     for name, metric in snap.items():
         if name in PORT_ONLY_GAUGES:
             continue
         parts = name.split(".")
-        if parts[:2] == ["repro", "ops"] and parts[-1] == REFERENCE_ONLY_GAUGE:
+        if parts[:2] == ["repro", "ops"] and parts[-1] in (REFERENCE_ONLY_GAUGE,
+                                                            *PORT_ONLY_COUNTERS):
             continue
         if parts[:2] == ["repro", "ops"] and parts[-1] == "launches":
             metric = dict(metric, series=[
